@@ -24,9 +24,26 @@ nonzero exit and no result line, if anything is wrong:
    and forced preempt/restores leave the evicted request's tokens unchanged
    (bf16, evicted before its first decode tick; float32, evicted
    mid-generation; the bf16 mid-generation case is logged).
-5. Timing: each kernel, its plain version and a library call for the same
-   function (SDPA for flash; none for paged), by CUDA events, beside the
-   card's bound for the same work; one ``{"kernels": [...]}`` line.
+5. RWKV6 kernel: ``rwkv6_scan`` against its plain version in float32 on the
+   ``tests/test_kernels.py`` cases, the state-carry composition, rwkv6-1.6b's
+   prefill shape (one prompt of 256 tokens, 32 heads of 64, chunk 32, decay
+   down to the clamp e^-4, and with every step at it), buckets below the
+   chunk (8 and 16 tokens) and a padded tail, each within 3e-4.
+6. RWKV6 serve: ``ServeEngine(rwkv6-1.6b, wkv_impl="kernel")`` at full width
+   and depth (1,599,868,928 parameters, seeded random bf16 weights) on the
+   same workload; all requests complete, ``rwkv6_scan`` is launched 24 times
+   per prefill, and a profile of steady decode ticks gives the device's busy
+   share.  Before it, every workload prompt's prefill logits through the
+   kernel match the plain sequential scan's in float32 compute (within 1e-3
+   of max |logit|); in bf16 the three routes are logged against each other
+   and against the float32 scan on the same weights.
+7. Timing: each kernel, its plain version and a library call for the same
+   function (SDPA for flash; none for paged or rwkv6_scan): device time from
+   torch.profiler (``ms``, ``plain_ms``, ``library_ms``) and call time by
+   CUDA events (``*call_ms``, host launch overhead included), beside the
+   card's bound for the same work (its bytes over the memory rate, or its
+   products over the peak rate of the type it works in, named in the row);
+   one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -47,9 +64,15 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 rate of the CUDA cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # the kernel tests' tolerances (tests/test_kernels.py)
 LOGITS_RTOL = 5e-2  # model logits in bf16 after 32 layers: max |diff| / max |logit|
+# rwkv6-1.6b prefill logits in float32 compute, kernel vs the plain scan: max |diff| / max |logit|
+# over the 16 workload prompts (its readings are in PERF.md)
+RWKV_FP32_RTOL = 1e-3
+RWKV_TOL = 3e-4  # the rwkv6 scan tests' tolerance (tests/test_kernels.py), float32
+RWKV_PARAMS = 1_599_868_928  # rwkv6-1.6b's parameter count (jax.eval_shape of the reference's init_params)
 
 FLASH_CASES = [  # tests/test_kernels.py FLASH_CASES: B, Sq, Sk, H, Hkv, Dh, causal, window, softcap, q_offset
     (2, 128, 128, 4, 2, 64, True, None, 0.0, 0),
@@ -59,6 +82,13 @@ FLASH_CASES = [  # tests/test_kernels.py FLASH_CASES: B, Sq, Sk, H, Hkv, Dh, cau
     (1, 8, 128, 4, 2, 64, True, None, 0.0, 120),
     (2, 64, 64, 2, 2, 256, True, None, 0.0, 0),
 ]
+RWKV_CASES = [  # tests/test_kernels.py RWKV_CASES: B, T, H, D, chunk, w_min
+    (2, 64, 2, 16, 32, 0.5),
+    (1, 96, 4, 64, 32, 0.02),
+    (2, 32, 2, 32, 16, float(np.exp(-4.0))),
+    (1, 64, 1, 128, 32, 0.2),
+]
+RWKV_SERVE = (1, 256, 32, 64, 32)  # rwkv6-1.6b prefill at the largest bucket: B, T, H, D, chunk
 PAGED_CASES = [  # tests/test_kernels.py PAGED_CASES: lengths, H, Hkv, window, softcap
     ([10, 3, 0], 4, 2, None, 0.0),
     ([8, 8], 4, 1, None, 0.0),
@@ -79,7 +109,9 @@ def log(**kw) -> None:
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
-    """Mean device time of one call, by CUDA events around ``iters`` calls."""
+    """Call time: CUDA events around ``iters`` back-to-back calls, per call.
+    Where the host takes longer to prepare a launch than the card to run
+    it, this is the host's time, not the kernel's (see ``device_ms``)."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -90,6 +122,63 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_records(body):
+    """The CUDA kernel records (torch.profiler's ``key_averages``) of one run
+    of ``body``, traced after a warm-up run of the same body: CUPTI misses
+    the first launches of a session, so the first run is traced and thrown
+    away (``schedule``'s warm-up step).  The step's own range, which the
+    profiler also lists as a device event, is left out."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            body()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and not e.key.startswith("ProfilerStep")]
+
+
+def device_ms(fn, what: str, iters: int = 50, warmup: int = 5, tries: int = 3) -> float:
+    """Device time of one call: the durations of the CUDA kernels it launches,
+    from torch.profiler over ``iters`` calls, per call.  It leaves out the
+    card's idle gaps while the host prepares the next launch.
+
+    Each call launches the same kernels, so a kernel's time per call is its
+    mean record times its launches per call (records / ``iters``, rounded).
+    CUPTI may drop records, some or all of a session's; the mean of those
+    left stands for the dropped ones, and a ``device_time_records`` line
+    says how many were missing.  A session with no record at all is run
+    again, up to ``tries`` sessions; if none has one, the CUDA-event call
+    time of ``time_ms`` (an upper bound: it includes the gaps) stands in,
+    and a ``device_time_fallback`` line says so."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+
+    def body():
+        for _ in range(iters):
+            fn()
+
+    for session in range(tries):
+        kernels = [e for e in kernel_records(body) if e.count]
+        if kernels:
+            break
+        log(phase="device_time_retry", what=what, session=session, note="torch.profiler recorded no kernel")
+    else:
+        ms = time_ms(fn, iters=iters, warmup=0)
+        log(phase="device_time_fallback", what=what, sessions=tries, call_ms=ms,
+            note="torch.profiler recorded no kernel; the CUDA-event call time stands in")
+        return ms
+    per_call = {e.key: max(1, round(e.count / iters)) for e in kernels}
+    missing = sum(per_call[e.key] * iters - e.count for e in kernels)
+    if missing:
+        log(phase="device_time_records", what=what, calls=iters, records=sum(e.count for e in kernels),
+            missing=missing, note="CUPTI dropped kernel records; each kernel's mean record stands in")
+    return sum(e.self_device_time_total / e.count * per_call[e.key] for e in kernels) / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +212,21 @@ def paged_inputs(lengths, H, Hkv, Dh, page_size, n_pages, p_max, dtype, seed=0):
             nxt += 1
     check(nxt <= n_pages, "paged fixture pool too small")
     return q, k_pool, v_pool, torch.from_numpy(table).cuda(), torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def rwkv_inputs(B, T, H, D, w_min, seed=0, state=True, pad_from=None, w_max=0.999):
+    """r, k, v, w (B, T, H, D), u (H, D) and s0 (B, H, D, D) or None, float32,
+    w uniform in [w_min, w_max]; with ``pad_from``, the steps from there on
+    carry k = 0 and w = 1 (a prefill's padded tail)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v = (torch.randn((B, T, H, D), generator=g, device="cuda") for _ in range(3))
+    w = w_min + (w_max - w_min) * torch.rand((B, T, H, D), generator=g, device="cuda")
+    u = 0.1 * torch.randn((H, D), generator=g, device="cuda")
+    s0 = 0.1 * torch.randn((B, H, D, D), generator=g, device="cuda") if state else None
+    if pad_from is not None:
+        k[:, pad_from:] = 0.0
+        w[:, pad_from:] = 1.0
+    return r, k, v, w, u, s0
 
 
 def quant_int8(x):
@@ -205,6 +309,57 @@ def phase_kernels(workload_lengths):
         for window in (None, 40):
             compare("paged_attention", ops.paged_attention(*int8_args, window=window),
                     paged_attention_ref(*int8_args, window=window), dtype, f"smollm int8 pools window={window}")
+    return main_err
+
+
+def phase_rwkv_kernels():
+    """``rwkv6_scan`` against its plain version in float32; returns the max |err| at the serve shape."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rwkv6_scan_ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+
+    clamp = float(np.exp(-4.0))
+
+    def compare(label, **pairs):
+        """Each (got, want) pair within the scan tests' criterion |got - want| <= tol + tol * |want|."""
+        torch.cuda.synchronize()
+        errs = {}
+        for what, (got, want) in pairs.items():
+            errs[what] = (got - want).abs().max().item()
+            ok = bool(torch.all((got - want).abs() <= RWKV_TOL + RWKV_TOL * want.abs()))
+            check(ok and bool(torch.isfinite(got).all()),
+                  f"rwkv6_scan {label}: {what} disagrees with its plain version")
+        log(phase="rwkv_kernels", kernel="rwkv6_scan", case=label, dtype="float32", max_abs_err=errs, tol=RWKV_TOL,
+            ok=True)
+        return max(errs.values())
+
+    def run(label, B, T, H, D, chunk, w_min, seed, **kw):
+        args = rwkv_inputs(B, T, H, D, w_min, seed=seed, **kw)
+        (y, s), (y_ref, s_ref) = ops.rwkv6_scan(*args, chunk=chunk), rwkv6_scan_ref(*args)
+        return compare(label, y=(y, y_ref), state=(s, s_ref)), args, s
+
+    for case in RWKV_CASES:
+        run(f"test_kernels {case}", *case, seed=1)
+    # state carry: two halves with the state handed over equal the whole sequence
+    r, k, v, w, u, _ = rwkv_inputs(1, 64, 2, 16, 0.3, seed=2)
+    y1, s1 = rwkv6_scan_cuda(r[:, :32], k[:, :32], v[:, :32], w[:, :32], u, chunk=16)
+    y2, s2 = rwkv6_scan_cuda(r[:, 32:], k[:, 32:], v[:, 32:], w[:, 32:], u, s1, chunk=16)
+    y_ref, s_ref = rwkv6_scan_ref(r, k, v, w, u)
+    compare("state carry, 2 x 32 tokens, chunk 16", y=(torch.cat([y1, y2], dim=1), y_ref), state=(s2, s_ref))
+    # rwkv6-1.6b's prefill shape, as the model calls it (no carried state), down to the decay clamp
+    B, T, H, D, C = RWKV_SERVE
+    main_err, _, _ = run(f"rwkv6-1.6b prefill T={T}", B, T, H, D, C, clamp, seed=3, state=False)
+    # every step at the clamp: the scores above the diagonal would reach e^124 if formed
+    run(f"rwkv6-1.6b prefill T={T}, every step's decay at the clamp", B, T, H, D, C, clamp, seed=5, state=False,
+        w_max=clamp)
+    for t_short in (8, 16):  # buckets below the chunk: one chunk of T tokens
+        run(f"rwkv6-1.6b prefill T={t_short}, below the chunk", B, t_short, H, D, C, clamp, seed=t_short, state=False)
+    # a padded tail (k = 0, w = 1 past the prompt) leaves the state where the prompt left it
+    pad = 137
+    _, (r, k, v, w, u, _), s_end = run(f"rwkv6-1.6b prefill T={T}, padded after {pad}", B, T, H, D, C, clamp,
+                                       seed=4, state=False, pad_from=pad)
+    _, s_prompt = rwkv6_scan_ref(r[:, :pad], k[:, :pad], v[:, :pad], w[:, :pad], u)
+    compare(f"padded after {pad}: the end state vs the plain state after the prompt", state=(s_end, s_prompt))
     return main_err
 
 
@@ -324,12 +479,10 @@ def _preempt_case(eng, cfg, baseline, label, fresh):
     return got == want
 
 
-def _profile_ticks(eng, cfg, n=10):
+def _profile_ticks(eng, cfg, n=10, phase="decode_profile"):
     """Steady decode ticks with all 8 slots active: host wall per tick without
     and with torch.profiler, the device time of the kernels per tick, and the
     kernels that take it."""
-    from torch.profiler import ProfilerActivity, profile
-
     eng.reset()
     for r in _workload(cfg)[:8]:
         eng.admit(r.rid, r.prompt, 64)
@@ -341,14 +494,15 @@ def _profile_ticks(eng, cfg, n=10):
         eng.tick()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def ticks():
         for _ in range(n):
             eng.tick()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    kernels = kernel_records(ticks)
     busy_us = sum(e.self_device_time_total for e in kernels) / n
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    log(phase="decode_profile", ticks=n, wall_ms_per_tick=wall * 1e3,
+    log(phase=phase, ticks=n, wall_ms_per_tick=wall * 1e3,
         device_ms_per_tick=busy_us / 1e3 if busy_us else "not measured",
         device_busy_share=busy_us / 1e6 / wall if busy_us else "not measured",
         kernels_per_tick=sum(e.count for e in kernels) / n,
@@ -406,9 +560,75 @@ def phase_paged_serve(cfg, params):
     return launches
 
 
+def phase_rwkv_serve():
+    """rwkv6-1.6b at full width and depth, its prefill through the rwkv6_scan kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import compute_copy, init_cache, init_params, prefill
+    from repro_torch.serve import ServeEngine, bucket_len
+
+    cfg = get_config("rwkv6-1.6b")
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.rwkv.head_dim) == (24, 2048, 7168, 65536, 64),
+          "rwkv6-1.6b at full width and depth")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(phase="rwkv_init_params", params=n_params, seconds=time.perf_counter() - t0)
+    check(n_params == RWKV_PARAMS, f"rwkv6-1.6b has {n_params} parameters, not {RWKV_PARAMS}")
+    # Every workload prompt's prefill through the kernel and through the plain
+    # sequential scan, in float32 compute (the gate), then in the engine's
+    # bf16 through all three routes, each also read against the float32 scan
+    # on the same weights: how far the bf16 routes part from each other
+    # beside how far each is from the float32 computation.
+    prompts = [r.prompt for r in _workload(cfg)]
+
+    def prefill_inputs(prompt):
+        L = len(prompt)
+        toks = torch.zeros((1, bucket_len(L)), dtype=torch.long, device="cuda")
+        toks[0, :L] = torch.from_numpy(prompt.astype(np.int64))
+        return toks, torch.tensor([L], dtype=torch.int32, device="cuda")
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = compute_copy(params, cfg32)
+    fresh32 = init_cache(cfg32, 1, 320, device="cuda")
+    ref32, rel32 = [], []
+    for prompt in prompts:
+        toks, lengths = prefill_inputs(prompt)
+        lk, _ = prefill(p32, fresh32, toks, lengths, cfg32, wkv_impl="kernel")
+        ls, _ = prefill(p32, fresh32, toks, lengths, cfg32, wkv_impl="scan")
+        check(bool(torch.isfinite(lk).all() and torch.isfinite(ls).all()), "rwkv prefill logits (float32) are finite")
+        ref32.append(ls)
+        rel32.append(_rel_err(lk, ls))
+    del p32, fresh32
+
+    eng = ServeEngine(cfg, params, n_slots=8, max_seq=320, wkv_impl="kernel")
+    del params  # the engine keeps its own compute-dtype copy
+    impls = ("kernel", "scan", "chunked")
+    for prompt, ls32, rel in zip(prompts, ref32, rel32):
+        toks, lengths = prefill_inputs(prompt)
+        out = {impl: prefill(eng.params, eng._fresh1, toks, lengths, cfg, wkv_impl=impl)[0] for impl in impls}
+        check(all(bool(torch.isfinite(lg).all()) for lg in out.values()), "rwkv prefill logits (bf16) are finite")
+        log(phase="rwkv_prefill_check", prompt_len=len(prompt), bucket=bucket_len(len(prompt)),
+            float32={"kernel_vs_scan": rel, "rtol": RWKV_FP32_RTOL},
+            bfloat16={"kernel_vs_scan": _rel_err(out["kernel"], out["scan"]),
+                      "chunked_vs_scan": _rel_err(out["chunked"], out["scan"]),
+                      "vs_float32_scan": {impl: _rel_err(lg, ls32) for impl, lg in out.items()}},
+            top1={"float32_scan": int(ls32.argmax()), **{impl: int(lg.argmax()) for impl, lg in out.items()}})
+    del ref32
+    check(max(rel32) <= RWKV_FP32_RTOL, f"rwkv prefill logits (float32): kernel vs the plain scan {max(rel32)}")
+
+    reqs, summary, launches = _serve(eng, cfg, "rwkv_serve")
+    check(launches["rwkv6_scan"] == cfg.n_layers * summary["prefills"] > 0, "rwkv6_scan launches = 24 x prefills")
+    check(launches["flash_attention"] == launches["paged_attention"] == 0, "an rwkv engine runs no attention kernel")
+    _profile_ticks(eng, cfg, phase="rwkv_decode_profile")
+    del eng
+    return launches
+
+
 def phase_timing(main_err, launches, paged_lengths):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as rw
 
     bf = torch.bfloat16
     rows = []
@@ -424,10 +644,14 @@ def phase_timing(main_err, launches, paged_lengths):
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:124", launches=launches["flash"],
         max_abs_err=main_err["flash_attention"],
-        ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
-        plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), iters=50),
-        library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)),
-        flops=flops, bytes=nbytes, shape=f"B={B} S={S} H={H} Hkv={Hkv} Dh={Dh} bf16 causal",
+        ms=device_ms(lambda: fa.flash_attention_cuda(q, k, v), "flash_attention"),
+        plain_ms=device_ms(lambda: fa.flash_attention_ref(q, k, v), "flash_attention plain", iters=20),
+        library_ms=device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), "sdpa"),
+        call_ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
+        plain_call_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), iters=50),
+        library_call_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)),
+        flops=flops, bytes=nbytes, peak="bf16 tensor cores", peak_flops=PEAK_BF16_FLOPS,
+        shape=f"B={B} S={S} H={H} Hkv={Hkv} Dh={Dh} bf16 causal",
     ))
     # paged: 8 slots mid-generation of the workload's first 8 requests, page size 16
     args = paged_inputs(paged_lengths, 15, 5, 64, 16, 160, 20, bf, seed=8)
@@ -439,13 +663,43 @@ def phase_timing(main_err, launches, paged_lengths):
         name="paged_attention", route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:130", launches=launches["paged"],
         max_abs_err=main_err["paged_attention"],
-        ms=time_ms(lambda: pa.paged_attention_cuda(*args)),
-        plain_ms=time_ms(lambda: pa.paged_attention_ref(*args), iters=50),
+        ms=device_ms(lambda: pa.paged_attention_cuda(*args), "paged_attention"),
+        plain_ms=device_ms(lambda: pa.paged_attention_ref(*args), "paged_attention plain", iters=20),
         library_ms=None,
-        flops=flops, bytes=nbytes, shape=f"B=8 lengths={paged_lengths} H=15 Hkv=5 Dh=64 page=16 bf16",
+        call_ms=time_ms(lambda: pa.paged_attention_cuda(*args)),
+        plain_call_ms=time_ms(lambda: pa.paged_attention_ref(*args), iters=50),
+        flops=flops, bytes=nbytes, peak="bf16 tensor cores", peak_flops=PEAK_BF16_FLOPS,
+        shape=f"B=8 lengths={paged_lengths} H=15 Hkv=5 Dh=64 page=16 bf16",
     ))
+    # rwkv6_scan: rwkv6-1.6b's prefill at the largest bucket, as the model calls it (no carried state)
+    B, T, H, D, C = RWKV_SERVE
+    r, k, v, w, u, _ = rwkv_inputs(B, T, H, D, float(np.exp(-4.0)), seed=9, state=False)
+    # per (b, h, chunk): 2CD^2 for (r e^Lprev) S, 2CD^2 for the state update, and
+    # C(C-1)D each for the causal scores and their product with v
+    flops = B * H * (T // C) * (4 * C * D * D + 2 * C * (C - 1) * D)
+    nbytes = 4 * (4 * r.numel() + u.numel() + r.numel() + B * H * D * D)  # r, k, v, w, u in; y, s_end out
+    rows.append(dict(
+        name="rwkv6_scan", route="cuda", source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:90", launches=launches["rwkv"],
+        max_abs_err=main_err["rwkv6_scan"],
+        ms=device_ms(lambda: rw.rwkv6_scan_cuda(r, k, v, w, u, chunk=C), "rwkv6_scan"),
+        plain_ms=device_ms(lambda: rw.rwkv6_scan_ref(r, k, v, w, u), "rwkv6_scan plain", iters=5, warmup=1),
+        library_ms=None,
+        call_ms=time_ms(lambda: rw.rwkv6_scan_cuda(r, k, v, w, u, chunk=C)),
+        plain_call_ms=time_ms(lambda: rw.rwkv6_scan_ref(r, k, v, w, u), iters=10, warmup=2),
+        flops=flops, bytes=nbytes, peak="float32 CUDA cores", peak_flops=PEAK_FP32_FLOPS,
+        shape=f"B={B} T={T} H={H} D={D} chunk={C} float32, decay down to e^-4",
+    ))
+    # where rwkv6_scan's time goes: its time against the chunks each block walks
+    # (T / C) and against the number of blocks (B * H) on the card's 132 SMs
+    scaling = {}
+    for t_len, heads in ((32, 32), (64, 32), (128, 32), (256, 32), (256, 128)):
+        a = rwkv_inputs(1, t_len, heads, D, float(np.exp(-4.0)), seed=10, state=False)[:5]
+        label = f"T={t_len} H={heads}"
+        scaling[label] = device_ms(lambda: rw.rwkv6_scan_cuda(*a, chunk=C), f"rwkv6_scan {label}")
+    log(phase="rwkv_scan_scaling", device_ms=scaling, note="B=1, D=64, chunk 32: T/32 chunks per block, H blocks")
     for r in rows:
-        t_ops, t_bytes = r["flops"] / PEAK_BF16_FLOPS * 1e3, r["bytes"] / PEAK_BYTES * 1e3
+        t_ops, t_bytes = r["flops"] / r["peak_flops"] * 1e3, r["bytes"] / PEAK_BYTES * 1e3
         r["bound_ms"] = max(t_ops, t_bytes)
         r["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
         r["kernel_ms"] = r["ms"]
@@ -472,6 +726,7 @@ def main() -> int:
           "smollm-360m at full width and depth")
     paged_lengths = [int(len(r.prompt) + r.max_gen // 2) for r in _workload(cfg)[:8]]
     main_err = phase_kernels(paged_lengths)
+    main_err["rwkv6_scan"] = phase_rwkv_kernels()
 
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
@@ -482,10 +737,13 @@ def main() -> int:
     paged_launches = phase_paged_serve(cfg, params)
     del params
     torch.cuda.empty_cache()
+    rwkv_launches = phase_rwkv_serve()
+    torch.cuda.empty_cache()
 
     rows = phase_timing(
         main_err,
-        {"flash": flash_launches["flash_attention"], "paged": paged_launches["paged_attention"]},
+        {"flash": flash_launches["flash_attention"], "paged": paged_launches["paged_attention"],
+         "rwkv": rwkv_launches["rwkv6_scan"]},
         paged_lengths,
     )
     log(phase="done", seconds=time.perf_counter() - t_start, nvidia_smi=smi)

@@ -2,20 +2,21 @@
 
 Only the architectures whose every layer the port can run are registered;
 the rest of the reference registry (``repro.configs``) joins slice by slice.
-``smoke_config`` is the reference's shrink rule, unchanged, so a smoke
-config here equals the JAX side's field for field.
+``smoke_config`` is the reference's shrink rule, unchanged (the MoE, Mamba
+and RWKV sub-configs shrink too), so a smoke config here equals the JAX
+side's field for field.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import smollm_360m
+from repro_torch.configs import rwkv6_1p6b, smollm_360m
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["ARCHS", "get_config", "smoke_config"]
 
-_MODULES = [smollm_360m]
+_MODULES = [rwkv6_1p6b, smollm_360m]
 
 ARCHS: dict[str, ModelConfig] = {m.ARCH_ID: m.CONFIG for m in _MODULES}
 
@@ -37,6 +38,18 @@ def smoke_config(arch_id: str, seq: int = 64) -> ModelConfig:
     n_kv = max(1, n_heads // ratio)
     if n_heads % n_kv:
         n_kv = 1
+    moe = (
+        dataclasses.replace(
+            cfg.moe,
+            n_experts=min(8, cfg.moe.n_experts),
+            top_k=min(cfg.moe.top_k, min(8, cfg.moe.n_experts)),
+            d_ff_expert=64,
+        )
+        if cfg.moe
+        else None
+    )
+    mamba = dataclasses.replace(cfg.mamba, d_inner=128, d_state=8, chunk=16) if cfg.mamba else None
+    rwkv = dataclasses.replace(cfg.rwkv, head_dim=16, decay_lora=8, mix_lora=8, chunk=16) if cfg.rwkv else None
     return dataclasses.replace(
         cfg,
         name=f"{cfg.name}-smoke",
@@ -47,6 +60,9 @@ def smoke_config(arch_id: str, seq: int = 64) -> ModelConfig:
         head_dim=16,
         d_ff=128,
         vocab_size=512,
+        moe=moe,
+        mamba=mamba,
+        rwkv=rwkv,
         sliding_window=min(cfg.sliding_window, 32),
         max_seq=seq,
         param_dtype="float32",

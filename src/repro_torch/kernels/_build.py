@@ -38,6 +38,10 @@ _ENTRY = {
         "paged_attention_fwd",
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
+    "rwkv6_scan": (
+        "rwkv6_scan_fwd",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int64), _P],
+    ),
 }
 
 _lock = threading.Lock()

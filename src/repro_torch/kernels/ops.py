@@ -11,10 +11,15 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import rwkv6_scan as _rw
 
-__all__ = ["flash_attention", "paged_attention", "launch_counts", "reset_launch_counts"]
+__all__ = ["flash_attention", "paged_attention", "rwkv6_scan", "launch_counts", "reset_launch_counts"]
 
-_WRAPPERS = {"flash_attention": _fa.flash_attention_cuda, "paged_attention": _pa.paged_attention_cuda}
+_WRAPPERS = {
+    "flash_attention": _fa.flash_attention_cuda,
+    "paged_attention": _pa.paged_attention_cuda,
+    "rwkv6_scan": _rw.rwkv6_scan_cuda,
+}
 
 
 def _route(t: torch.Tensor) -> str:
@@ -35,6 +40,16 @@ def paged_attention(q, k_pool, v_pool, pages, lengths, k_scale=None, v_scale=Non
     """Ragged paged-decode attention; see ``kernels.paged_attention`` for the layout."""
     fn = _pa.paged_attention_cuda if _route(q) == "cuda" else _pa.paged_attention_ref
     return fn(q, k_pool, v_pool, pages, lengths, k_scale, v_scale, window=window, softcap=softcap)
+
+
+def rwkv6_scan(r, k, v, w, u, s0=None, chunk: int = 32):
+    """The RWKV6 WKV recurrence over chunks of ``min(chunk, T)`` tokens, which
+    must divide T; see ``kernels.rwkv6_scan`` for the layout.  The plain
+    version is the sequential recurrence, which gives the same result."""
+    if _route(r) == "cuda":
+        return _rw.rwkv6_scan_cuda(r, k, v, w, u, s0, chunk=chunk)
+    _rw.chunk_for(r.shape[1], chunk)
+    return _rw.rwkv6_scan_ref(r, k, v, w, u, s0)
 
 
 def launch_counts() -> dict[str, int]:

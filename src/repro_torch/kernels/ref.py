@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels (the allclose targets).
+"""Plain PyTorch versions of the kernels (the allclose targets).
 
 These mirror ``repro.kernels.ref``: the simplest correct arithmetic, scores
 materialised, no blocking and no online softmax.  They run on any device;
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "flash_attention_ref", "paged_attention_ref"]
+__all__ = ["NEG_INF", "flash_attention_ref", "paged_attention_ref", "rwkv6_scan_ref"]
 
 NEG_INF = -2.0e38  # large finite; avoids NaN from (-inf) - (-inf)
 
@@ -104,3 +104,27 @@ def paged_attention_ref(
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
     out_dtype = torch.promote_types(q.dtype, torch.bfloat16) if int8_kv else q.dtype
     return out.reshape(B, H, Dh).to(out_dtype)
+
+
+def rwkv6_scan_ref(
+    r: torch.Tensor,  # (B, T, H, D) float32
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,  # per-token decay in (0, 1]
+    u: torch.Tensor,  # (H, D) per-channel bonus of the current token
+    s0: torch.Tensor | None = None,  # (B, H, D, D) float32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sequential RWKV6 recurrence, one token at a time (``repro.kernels.ref.rwkv6_scan_ref``):
+    ``y_t = r_t . (S_{t-1} + diag(u k_t) v_t)`` in its outer-product form and
+    ``S_t = diag(w_t) S_{t-1} + k_t v_t^T``.  Returns (y (B, T, H, D) in r's
+    dtype, s_end (B, H, D, D) float32)."""
+    B, T, H, D = r.shape
+    s = torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device) if s0 is None else s0.float()
+    uf = u.float()[None, :, :, None]
+    ys = []
+    for t in range(T):
+        rt, kt, vt, wt = (x[:, t].float() for x in (r, k, v, w))  # (B, H, D)
+        kv = kt[..., :, None] * vt[..., None, :]  # (B, H, D, D)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rt, s + uf * kv))
+        s = wt[..., :, None] * s + kv
+    return torch.stack(ys, dim=1).to(r.dtype), s

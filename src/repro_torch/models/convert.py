@@ -8,7 +8,11 @@ as they are, with no transpose.  Names match too: the reference's
 repeating pattern's layers on a leading ``n_repeats`` axis
 (``jax.vmap`` over ``_init_pattern``) and keeps left-over layers unstacked
 under ``params["tail"]``; the port keeps one ``Block`` per layer, in
-execution order.
+execution order.  Nested dicts map to submodules: a LayerNorm's
+``{"gain", "bias"}`` (``final_norm``, ``norm1``, an RWKV layer's ``ln1``)
+becomes ``final_norm.gain``/``final_norm.bias``, and an RWKV layer's
+``params["body"]["layer0"]["rwkv"]["ln1"]["gain"][rep]`` is the port's
+``layers[rep].rwkv.ln1.gain``.
 
 The tree's leaves are numpy arrays (``jax.tree.map(np.asarray, params)``);
 this module imports no JAX.
@@ -65,9 +69,7 @@ def _to_tensor(a) -> torch.Tensor:
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device: str | torch.device = "cuda") -> Transformer:
     """The reference ``init_params`` tree (numpy leaves) as the port's parameters on ``device``."""
-    state = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
-    if not cfg.tie_embeddings:
-        state["lm_head"] = tree["lm_head"]
+    state = _flatten({key: val for key, val in tree.items() if key not in ("body", "tail")})
     for n, (group, key, rep) in enumerate(_layer_slots(cfg)):
         for name, leaf in _flatten(tree[group][key]).items():
             state[f"layers.{n}.{name}"] = leaf if rep is None else np.asarray(leaf)[rep]
@@ -84,9 +86,7 @@ def params_to_jax(params: Transformer, cfg: ModelConfig) -> dict:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    tree: dict = {"embed": host(params.embed), "final_norm": host(params.final_norm)}
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = host(params.lm_head)
+    tree = _unflatten({name: host(p) for name, p in params.named_parameters() if not name.startswith("layers.")})
     groups: dict = {}
     for layer, (group, key, _) in zip(params.layers, _layer_slots(cfg)):
         flat = {name: host(p) for name, p in layer.named_parameters()}

@@ -8,8 +8,30 @@ matrices without a transpose.
 from __future__ import annotations
 
 import torch
+from torch import nn
 
-__all__ = ["dense_init_", "embed", "linear", "rmsnorm"]
+__all__ = [
+    "LayerNorm",
+    "dense_init_",
+    "embed",
+    "layernorm",
+    "linear",
+    "make_norm",
+    "norm_apply",
+    "normal_init_",
+    "rmsnorm",
+]
+
+
+def _draw_fp32_(w: torch.Tensor, draw) -> None:
+    """In place: ``draw`` fills a float32 tensor, which is then cast into ``w``
+    (the reference draws in float32 and casts to the parameter dtype)."""
+    if w.dtype == torch.float32:
+        draw(w)
+    else:
+        tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+        draw(tmp)
+        w.copy_(tmp)
 
 
 def dense_init_(w: torch.Tensor, generator: torch.Generator, scale: float | None = None) -> None:
@@ -17,7 +39,12 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator, scale: float | None
     cut at +-3 std with std = d_in**-0.5 unless ``scale`` is given (the
     reference's rule; the numbers differ because the generator is torch's)."""
     std = scale if scale is not None else w.shape[0] ** -0.5
-    torch.nn.init.trunc_normal_(w, 0.0, std, -3.0 * std, 3.0 * std, generator=generator)
+    _draw_fp32_(w, lambda t: torch.nn.init.trunc_normal_(t, 0.0, std, -3.0 * std, 3.0 * std, generator=generator))
+
+
+def normal_init_(w: torch.Tensor, generator: torch.Generator, std: float) -> None:
+    """In place: N(0, std), drawn in float32."""
+    _draw_fp32_(w, lambda t: torch.nn.init.normal_(t, 0.0, std, generator=generator))
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -37,3 +64,40 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Ten
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + gain.float())).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm parameters ``gain`` and ``bias`` (d,), the reference's
+    ``layernorm_init`` dict; both start at zero (the gain is applied as 1 + g)."""
+
+    def __init__(self, d: int, dtype: torch.dtype, device=None) -> None:
+        super().__init__()
+        self.gain = nn.Parameter(torch.empty(d, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.empty(d, dtype=dtype, device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        self.gain.zero_()
+        self.bias.zero_()
+
+
+def layernorm(x: torch.Tensor, p: LayerNorm, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm with fp32 statistics: ``y * (1 + gain) + bias``, cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * (1.0 + p.gain.float()) + p.bias.float()).to(x.dtype)
+
+
+def make_norm(kind: str, d: int, dtype: torch.dtype, device=None) -> nn.Parameter | LayerNorm:
+    """A norm's parameters: the (d,) RMSNorm gain, or a ``LayerNorm`` pair."""
+    if kind == "rmsnorm":
+        return nn.Parameter(torch.empty(d, dtype=dtype, device=device))
+    return LayerNorm(d, dtype, device)
+
+
+def norm_apply(x: torch.Tensor, p: nn.Parameter | LayerNorm, kind: str, eps: float) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, p, eps)
+    return layernorm(x, p, eps)

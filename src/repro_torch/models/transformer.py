@@ -1,9 +1,10 @@
 """Decoder-LM assembly for serving: parameters, caches, ``prefill`` and ``decode_step``.
 
 The port of ``repro.models.transformer`` for attention layers with dense
-MLPs.  The layer stack is a ``ModuleList`` walked by a Python loop where the
-reference scans over its pattern-stacked ``body``; the cache likewise holds
-one dict per layer.  Mamba, RWKV and MoE layers raise ``NotImplementedError``
+MLPs and for RWKV6 layers, under RMSNorm or LayerNorm.  The layer stack is a
+``ModuleList`` walked by a Python loop where the reference scans over its
+pattern-stacked ``body``; the cache likewise holds one dict per layer.
+Mamba and MoE layers, and embedding inputs, raise ``NotImplementedError``
 until their slice.
 
 Public entry points:
@@ -20,8 +21,9 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.models.layers import dense_init_, embed, rmsnorm
+from repro_torch.models.layers import dense_init_, embed, make_norm, norm_apply
 from repro_torch.models.mlp import MLP, mlp_apply
 
 __all__ = ["Block", "Transformer", "init_params", "compute_copy", "init_cache", "prefill", "decode_step"]
@@ -29,41 +31,53 @@ __all__ = ["Block", "Transformer", "init_params", "compute_copy", "init_cache", 
 
 def _check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.layer_specs():
-        if spec.kind != "attn":
-            raise NotImplementedError(f"{spec.kind} layers wait for the recurrent-family slice of the port")
+        if spec.kind == "mamba":
+            raise NotImplementedError("mamba layers wait for the Mamba and MoE slice of the port")
         if spec.moe:
-            raise NotImplementedError("MoE layers wait for the recurrent and MoE slice of the port")
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} waits for a later slice of the port")
+            raise NotImplementedError("MoE layers wait for the Mamba and MoE slice of the port")
     if cfg.embeds_input:
         raise NotImplementedError("embedding inputs wait for a later slice of the port")
 
 
+def _zero_norm(norm: nn.Module | nn.Parameter) -> None:
+    for param in [norm] if isinstance(norm, nn.Parameter) else norm.parameters():
+        param.zero_()  # (1 + g) gains and biases start at zero
+
+
 class Block(nn.Module):
-    """One attention layer with a dense MLP: ``norm1``, ``mixer``, ``norm2``,
-    ``ffn`` (and ``norm1_post``/``norm2_post`` with ``post_block_norm``)."""
+    """One layer.  Attention with a dense MLP: ``norm1``, ``mixer``, ``norm2``,
+    ``ffn`` (and ``norm1_post``/``norm2_post`` with ``post_block_norm``); each
+    norm is a (d,) RMSNorm gain or a ``LayerNorm`` gain/bias pair.  RWKV6:
+    only ``rwkv``, which carries its own norms and both residuals."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, device=None) -> None:
         super().__init__()
         self.spec = spec
-        kw = dict(dtype=cfg.dtype("param"), device=device)
-        names = ["norm1", "norm2"] + (["norm1_post", "norm2_post"] if cfg.post_block_norm else [])
-        for name in names:
-            setattr(self, name, nn.Parameter(torch.empty(cfg.d_model, **kw)))
+        if spec.kind == "rwkv":
+            self.rwkv = rwkv_lib.RWKV(cfg, device)
+            self.norms = []
+            return
+        self.norms = ["norm1", "norm2"] + (["norm1_post", "norm2_post"] if cfg.post_block_norm else [])
+        for name in self.norms:
+            setattr(self, name, make_norm(cfg.norm, cfg.d_model, cfg.dtype("param"), device))
         self.mixer = attn_lib.Attention(cfg, device)
         self.ffn = MLP(cfg, device)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        for name, param in self.named_parameters(recurse=False):
-            param.zero_()  # (1 + g) gains start at zero
+        if self.spec.kind == "rwkv":
+            self.rwkv.reset_parameters(generator)
+            return
+        for name in self.norms:
+            _zero_norm(getattr(self, name))
         self.mixer.reset_parameters(generator)
         self.ffn.reset_parameters(generator)
 
 
 class Transformer(nn.Module):
     """``embed`` (V, d), ``layers`` (one ``Block`` per layer, in execution
-    order), ``final_norm`` (d,), and ``lm_head`` (d, V) unless embeddings are tied."""
+    order), ``final_norm`` (a (d,) gain, or a gain/bias pair under LayerNorm),
+    and ``lm_head`` (d, V) unless embeddings are tied."""
 
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
@@ -72,7 +86,7 @@ class Transformer(nn.Module):
         kw = dict(dtype=cfg.dtype("param"), device=device)
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw))
         self.layers = nn.ModuleList(Block(cfg, spec, device) for spec in cfg.layer_specs())
-        self.final_norm = nn.Parameter(torch.empty(cfg.d_model, **kw))
+        self.final_norm = make_norm(cfg.norm, cfg.d_model, cfg.dtype("param"), device)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size, **kw))
 
@@ -81,7 +95,7 @@ class Transformer(nn.Module):
         dense_init_(self.embed, generator, scale=self.cfg.d_model**-0.5)
         for layer in self.layers:
             layer.reset_parameters(generator)
-        self.final_norm.zero_()
+        _zero_norm(self.final_norm)
         if not self.cfg.tie_embeddings:
             dense_init_(self.lm_head, generator)
 
@@ -98,16 +112,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "c
     return model.requires_grad_(False)
 
 
-def compute_copy(params: Transformer) -> Transformer:
-    """A copy whose matrices are in the compute dtype, made once at load.  The
+def compute_copy(params: Transformer, cfg: ModelConfig | None = None) -> Transformer:
+    """A copy whose matrices are in the compute dtype of ``cfg`` (default: the
+    parameters' own config), made once at load.  The
     arithmetic is unchanged: every matrix is cast to the activation dtype at
     its use anyway (``layers.linear``, the embedding lookup, the logits); the
-    norm gains stay in the parameter dtype, as the reference reads them."""
-    dt = params.cfg.dtype("compute")
+    norm gains and other vectors stay in the parameter dtype, as the
+    reference reads them.  The rule: a matrix that the reference reads in
+    float32 (a module's ``READ_IN_FP32``, such as RWKV's ``decay_w2``) is
+    never narrowed."""
+    dt = (cfg or params.cfg).dtype("compute")
     out = copy.deepcopy(params)
-    for param in out.parameters():
-        if param.ndim >= 2:
-            param.data = param.data.to(dt)
+    for module in out.modules():
+        keep = getattr(module, "READ_IN_FP32", ())
+        for name, param in module.named_parameters(recurse=False):
+            if param.ndim >= 2 and name not in keep:
+                param.data = param.data.to(dt)
     return out
 
 
@@ -121,18 +141,21 @@ def init_cache(
 ) -> dict:
     """The per-slot (continuous-batching) cache: {"index": (batch,), "layers": [...]}.
 
-    Dense: each layer holds {"k","v": (batch, S_cache, Hkv, Dh), "pos": (batch,
-    S_cache)}, with S_cache the window for local layers of a
-    ``windowed_cache`` config.  ``paged``: each layer holds shared page pools
-    instead, and the cache gains the page table ``pages`` (batch,
-    pages_per_slot) int32 shared by every layer (-1 = unallocated)."""
+    Dense: each attention layer holds {"k","v": (batch, S_cache, Hkv, Dh),
+    "pos": (batch, S_cache)}, with S_cache the window for local layers of a
+    ``windowed_cache`` config.  ``paged``: each attention layer holds shared
+    page pools instead, and the cache gains the page table ``pages`` (batch,
+    pages_per_slot) int32 shared by every layer (-1 = unallocated).  An RWKV
+    layer holds its per-slot {"tm_last", "cm_last", "state"} either way."""
     _check_supported(cfg)
     cache: dict = {"index": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if paged is not None:
         cache["pages"] = torch.full((batch, paged.pages_per_slot), -1, dtype=torch.int32, device=device)
     layers = []
     for spec in cfg.layer_specs():
-        if paged is not None:
+        if spec.kind == "rwkv":
+            layers.append(rwkv_lib.init_rwkv_cache(cfg, batch, device=device))
+        elif paged is not None:
             layers.append(attn_lib.init_paged_kv_cache(cfg, paged, device=device))
         else:
             window = cfg.windowed_cache and spec.attn_type == "local"
@@ -164,33 +187,40 @@ def _logits(params: Transformer, h: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     return logits
 
 
+def _norm(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+    return norm_apply(x, p, cfg.norm, cfg.norm_eps)
+
+
 def _ffn_half(layer: Block, h: torch.Tensor, mix: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.post_block_norm:
-        mix = rmsnorm(mix, layer.norm1_post, cfg.norm_eps)
+        mix = _norm(mix, layer.norm1_post, cfg)
     h = h + mix
-    ffn = mlp_apply(layer.ffn, rmsnorm(h, layer.norm2, cfg.norm_eps), cfg)
+    ffn = mlp_apply(layer.ffn, _norm(h, layer.norm2, cfg), cfg)
     if cfg.post_block_norm:
-        ffn = rmsnorm(ffn, layer.norm2_post, cfg.norm_eps)
+        ffn = _norm(ffn, layer.norm2_post, cfg)
     return h + ffn
 
 
 @torch.no_grad()
 def decode_step(params: Transformer, cache: dict, tokens: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One serving step: tokens (B,) -> (logits (B, V), cache).  The cache is
-    updated in place and returned with ``index + 1``; ``pages`` is read-only
-    here (the engine owns it)."""
+    updated in place (attention layers write their tensors, RWKV layers get
+    new ones in their dicts) and returned with ``index + 1``; ``pages`` is
+    read-only here (the engine owns it)."""
     h = _embed_in(params, tokens[:, None], cfg)
     index = cache["index"]
     pages = cache.get("pages")
     for layer, layer_cache in zip(params.layers, cache["layers"]):
+        if layer.spec.kind == "rwkv":
+            h, new = rwkv_lib.rwkv_decode(layer.rwkv, h, layer_cache, cfg)
+            layer_cache.update(new)
+            continue
         c = dict(layer_cache, index=index)
         if pages is not None:
             c["pages"] = pages
-        mix, _ = attn_lib.attention_decode(
-            layer.mixer, rmsnorm(h, layer.norm1, cfg.norm_eps), c, cfg, layer.spec.attn_type
-        )
+        mix, _ = attn_lib.attention_decode(layer.mixer, _norm(h, layer.norm1, cfg), c, cfg, layer.spec.attn_type)
         h = _ffn_half(layer, h, mix, cfg)
-    h = rmsnorm(h, params.final_norm, cfg.norm_eps)
+    h = _norm(h, params.final_norm, cfg)
     cache["index"] = index + 1
     return _logits(params, h, cfg)[:, 0], cache
 
@@ -203,24 +233,30 @@ def prefill(
     lengths: torch.Tensor,
     cfg: ModelConfig,
     attn_impl: str = "naive",
+    wkv_impl: str = "chunked",
 ) -> tuple[torch.Tensor, dict]:
     """Batched prompt-parallel prefill: one forward over the whole padded prompt
     writes every layer's cache.
 
     tokens: (B, S_p) right-padded prompts; lengths: (B,) valid counts (1..S_p);
-    cache: a dense per-slot cache from ``init_cache`` (read for its shapes,
-    not modified).  Returns (logits at each row's last real token (B, V), a
-    new cache with ``index == lengths``)."""
+    cache: a dense per-slot cache from ``init_cache`` (read for its shapes
+    and dtypes, not modified).  ``attn_impl`` picks the attention layers'
+    route, ``wkv_impl`` ("scan", "chunked" or "kernel") the RWKV layers'.
+    Returns (logits at each row's last real token (B, V), a new cache with
+    ``index == lengths``)."""
     h = _embed_in(params, tokens, cfg)
     lengths = lengths.to(torch.int32)
     layers = []
     for layer, layer_cache in zip(params.layers, cache["layers"]):
+        if layer.spec.kind == "rwkv":
+            h, new = rwkv_lib.rwkv_prefill(layer.rwkv, h, cfg, lengths, wkv_impl)
+            layers.append({key: val.to(layer_cache[key].dtype) for key, val in new.items()})
+            continue
         mix, new_layer_cache = attn_lib.attention_prefill(
-            layer.mixer, rmsnorm(h, layer.norm1, cfg.norm_eps), layer_cache, cfg, layer.spec.attn_type, lengths,
-            impl=attn_impl,
+            layer.mixer, _norm(h, layer.norm1, cfg), layer_cache, cfg, layer.spec.attn_type, lengths, impl=attn_impl
         )
         h = _ffn_half(layer, h, mix, cfg)
         layers.append(new_layer_cache)
-    h = rmsnorm(h, params.final_norm, cfg.norm_eps)
+    h = _norm(h, params.final_norm, cfg)
     last = h[torch.arange(h.shape[0], device=h.device), lengths.long() - 1]
     return _logits(params, last, cfg), {"index": lengths, "layers": layers}

@@ -12,6 +12,8 @@ PyTorch runs eagerly where the reference jit-compiles each of these steps.
 page reservations, and per-tick decode reads each slot's live pages only.
 A paged engine always prefills with naive attention into a non-windowed
 template, then splices the template's positions into the slot's pages.
+Recurrent (RWKV) layers keep a per-slot state in either layout, and the
+splice overwrites the slot's row of it whole.
 
 The engine makes one compute-dtype copy of the parameters at load
 (``models.transformer.compute_copy``), which is the same arithmetic as
@@ -41,6 +43,13 @@ def bucket_len(n: int, lo: int = 8) -> int:
     return b
 
 
+def _splice_row(big: dict, tmpl: dict, b: int) -> None:
+    """Overwrite slot ``b``'s row of every tensor of a per-slot layer cache with
+    the batch-1 template's."""
+    for key, buf in big.items():
+        buf[b] = tmpl[key][0].to(buf.dtype)
+
+
 @dataclasses.dataclass
 class _Slot:
     rid: int | None = None
@@ -66,6 +75,7 @@ class ServeEngine:
         temperature: float = 0.0,
         seed: int = 0,
         attn_impl: str = "naive",
+        wkv_impl: str = "chunked",
         page_size: int = 8,
         pool_pages: int | None = None,
         device: str | torch.device = "cuda",
@@ -74,23 +84,29 @@ class ServeEngine:
         dense cache; "paged" switches the cache to the paged layout (prefill
         stays naive) and decodes through the paged kernel.  The default pool
         matches the dense layout's footprint (``n_slots * max_seq`` tokens).
+        ``wkv_impl``: the RWKV layers' prefill route, "scan", "chunked" or
+        "kernel" (the CUDA kernel on the card); decode always runs the
+        single-token recurrence.
         ``params``: a ``Transformer`` on ``device`` (default: seeded from ``seed``)."""
         if attn_impl == "blocked":
             raise ValueError("attn_impl 'blocked' waits for the training slice of the port")
         if attn_impl not in ("naive", "flash", "paged"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        if wkv_impl not in ("scan", "chunked", "kernel"):
+            raise ValueError(f"unknown wkv_impl {wkv_impl!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         if params is None:
             params = init_params(cfg, seed, self.device)
         if params.embed.device != self.device:
             raise ValueError(f"params live on {params.embed.device}, the engine on {self.device}")
-        self.params = compute_copy(params)
+        self.params = compute_copy(params, cfg)
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.temperature = temperature
         self.attn_impl = attn_impl
+        self.wkv_impl = wkv_impl
         self.seed = seed
         if attn_impl == "paged":
             n_pages = pool_pages if pool_pages is not None else -(-n_slots * max_seq // page_size)
@@ -211,14 +227,15 @@ class ServeEngine:
         padded[0, :L] = tokens
         toks = torch.from_numpy(padded).to(self.device)
         lengths = torch.tensor([L], dtype=torch.int32, device=self.device)
-        logits, small = prefill(self.params, self._fresh1, toks, lengths, self.cfg, self._prefill_impl)
+        logits, small = prefill(self.params, self._fresh1, toks, lengths, self.cfg, self._prefill_impl, self.wkv_impl)
         tok = self._sample(logits)[0]
         self.cache["index"][b] = small["index"][0]
         if self.pool is not None:
-            # template positions 0..W-1 go to the slot's pages; pad positions
-            # (p >= L) go to the trailing scratch page, so the scatter's only
-            # repeated indices land there.  The table lookup is clamped: the
-            # bucket may span more page slots than the table row has.
+            # attention layers: template positions 0..W-1 go to the slot's
+            # pages; pad positions (p >= L) go to the trailing scratch page,
+            # so the scatter's only repeated indices land there.  The table
+            # lookup is clamped: the bucket may span more page slots than the
+            # table row has.  Recurrent layers: the slot's row, whole.
             W = min(bucket, self.max_seq)
             ps = self.layout.page_size
             pidx = np.arange(W)
@@ -227,13 +244,15 @@ class ServeEngine:
             dest_t = torch.from_numpy(dest.astype(np.int64)).to(self.device)
             offs_t = torch.from_numpy(pidx % ps).to(self.device)
             for big, tmpl in zip(self.cache["layers"], small["layers"]):
-                big["k_pool"][dest_t, offs_t] = tmpl["k"][0, :W].to(big["k_pool"].dtype)
-                big["v_pool"][dest_t, offs_t] = tmpl["v"][0, :W].to(big["v_pool"].dtype)
+                if "k_pool" in big:
+                    big["k_pool"][dest_t, offs_t] = tmpl["k"][0, :W].to(big["k_pool"].dtype)
+                    big["v_pool"][dest_t, offs_t] = tmpl["v"][0, :W].to(big["v_pool"].dtype)
+                else:
+                    _splice_row(big, tmpl, b)
             self._ship_table()
         else:
             for big, tmpl in zip(self.cache["layers"], small["layers"]):
-                for key, buf in big.items():
-                    buf[b] = tmpl[key][0].to(buf.dtype)
+                _splice_row(big, tmpl, b)
         self.last_tok[b] = tok
         self.prefills += 1
         self.prefill_tokens += L

@@ -18,6 +18,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref
 from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_ref
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -208,7 +209,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q, kp, vp, table, lens = _paged_inputs([3], 2, 1, Dh=16)
     with pytest.raises(ValueError, match="CUDA tensors"):
         paged_attention_cuda(_t(q), _t(kp), _t(vp), _t(table), _t(lens))
-    assert ops.launch_counts() == {"flash_attention": 0, "paged_attention": 0}
+    r, k, v, w = (torch.rand((1, 16, 1, 16)) for _ in range(4))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rwkv6_scan_cuda(r, k, v, w, torch.rand((1, 16)))
+    assert ops.launch_counts() == {"flash_attention": 0, "paged_attention": 0, "rwkv6_scan": 0}
 
 
 # ---------------------------------------------------------------------------

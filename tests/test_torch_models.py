@@ -308,7 +308,7 @@ def test_port_init_params_shapes_match_jax():
 
 def test_unported_archs_and_layers_raise():
     with pytest.raises(KeyError, match="smollm-360m"):
-        get_config("rwkv6-1.6b")
+        get_config("jamba-1.5-large-398b")
     from repro_torch.models.config import LayerSpec, MoEConfig
 
     cfg = dataclasses.replace(smoke_config("smollm-360m"), kv_cache_dtype="int8")
