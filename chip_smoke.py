@@ -33,12 +33,36 @@ nonzero exit and no result line, if anything is wrong:
    and depth (1,599,868,928 parameters, seeded random bf16 weights) on the
    same workload; all requests complete, ``rwkv6_scan`` is launched 24 times
    per prefill, and a profile of steady decode ticks gives the device's busy
-   share.  Before it, every workload prompt's prefill logits through the
+   share; the workload and the ticks again with ``torch.sigmoid``/``F.silu``
+   in place of the port's step-by-step bf16 rounding give that rounding's
+   cost in tok/s and host ms per tick.  Before it, every workload prompt's prefill logits through the
    kernel match the plain sequential scan's in float32 compute (within 1e-3
    of max |logit|); in bf16 the three routes are logged against each other
    and against the float32 scan on the same weights.
-7. Timing: each kernel, its plain version and a library call for the same
-   function (SDPA for flash; none for paged or rwkv6_scan): device time from
+7. Accumulation kernel: ``weighted_accum`` against its plain version on the
+   ``tests/test_kernels.py`` cases, a float32 accumulator with a bfloat16
+   gradient, views at an odd element offset (the unaligned path) and
+   smollm-360m's embedding gradient (49152, 960), each at scale 0.37, 1.0
+   and a scale read from a device tensor: expected bit-equal, gated at the
+   reference's 1e-5; in place at scale 1 it equals the inline sum ``a + g``.
+8. Train: ``ElasticTrainer`` (the train CLI's driver) trains smollm-360m at
+   full width and depth (random weights from seed 0, seq 2048, micro_bs 1,
+   8 microbatches a step over 4 simulated workers v100, rtx2080ti x2,
+   gtx1080ti, 2 steps an epoch, 8 steps, ``replace@6:3=v100``, adaptive,
+   while mode).  Every loss is finite, ``weighted_accum`` is launched 290
+   times per microbatch (one per gradient tensor) and no other kernel runs,
+   and the allocation trajectory and membership log equal the same schedule
+   at smoke size on the CPU; a profile of one microbatch gives the device's
+   busy share of the step.  Then two masked-mode steps from the same start
+   (allocation [3, 2, 2, 1], buffers 3 deep): the first step's loss and
+   gradient norm match while mode's within ``MASKED_RTOL`` (only the
+   summation order differs).  Then two steps under the CLI's default
+   measured timing (4 microbatches over 2 ranks, one epoch): finite losses,
+   and the controller receives one positive time per rank, summing to the
+   steps' wall clock.
+9. Timing: each kernel, its plain version and a library call for the same
+   function (SDPA for flash; ``torch.add(acc, g, alpha=scale)`` for
+   weighted_accum; none for paged or rwkv6_scan): device time from
    torch.profiler (``ms``, ``plain_ms``, ``library_ms``) and call time by
    CUDA events (``*call_ms``, host launch overhead included), beside the
    card's bound for the same work (its bytes over the memory rate, or its
@@ -73,6 +97,14 @@ LOGITS_RTOL = 5e-2  # model logits in bf16 after 32 layers: max |diff| / max |lo
 RWKV_FP32_RTOL = 1e-3
 RWKV_TOL = 3e-4  # the rwkv6 scan tests' tolerance (tests/test_kernels.py), float32
 RWKV_PARAMS = 1_599_868_928  # rwkv6-1.6b's parameter count (jax.eval_shape of the reference's init_params)
+ACCUM_TOL = 1e-5  # the accumulation tests' tolerance (tests/test_kernels.py), rtol and atol
+SMOLLM_TENSORS, SMOLLM_PARAMS = 290, 361_821_120  # smollm-360m's gradient tree: tensors, floats
+# masked vs while mode, first step's loss and gradient norm: max |diff| / |while|; the two
+# modes run the same microbatches and differ only in the order the gradients are summed
+MASKED_RTOL = 1e-5
+TRAIN = dict(arch="smollm-360m", steps=8, micro_bs=1, total_micro=8, n_workers=4,
+             hetero_gpus="v100,rtx2080ti,rtx2080ti,gtx1080ti", steps_per_epoch=2, events="replace@6:3=v100",
+             policy="adaptive", mode="while")
 
 FLASH_CASES = [  # tests/test_kernels.py FLASH_CASES: B, Sq, Sk, H, Hkv, Dh, causal, window, softcap, q_offset
     (2, 128, 128, 4, 2, 64, True, None, 0.0, 0),
@@ -395,7 +427,7 @@ def _serve(eng, cfg, name):
     log(phase=name, requests=len(reqs), completed=summary["completed"], gen_tokens=summary["gen_tokens"],
         prefills=summary["prefills"], ticks=summary["ticks"], wall_s=wall, tok_per_s=summary["gen_tokens"] / wall,
         launches=launches)
-    return reqs, summary, launches
+    return reqs, dict(summary, wall_s=wall), launches
 
 
 def _rel_err(got, want):
@@ -509,6 +541,7 @@ def _profile_ticks(eng, cfg, n=10, phase="decode_profile"):
         top=[{"name": e.key[:70], "ms_per_tick": e.self_device_time_total / 1e3 / n, "calls_per_tick": e.count / n}
              for e in top])
     eng.reset()
+    return {"wall_ms_per_tick": wall * 1e3, "kernels_per_tick": sum(e.count for e in kernels) / n}
 
 
 def phase_paged_serve(cfg, params):
@@ -621,8 +654,304 @@ def phase_rwkv_serve():
     check(launches["rwkv6_scan"] == cfg.n_layers * summary["prefills"] > 0, "rwkv6_scan launches = 24 x prefills")
     check(launches["flash_attention"] == launches["paged_attention"] == 0, "an rwkv engine runs no attention kernel")
     _profile_ticks(eng, cfg, phase="rwkv_decode_profile")
+    _activation_cost(eng, cfg)
     del eng
     return launches
+
+
+def _activation_cost(eng, cfg):
+    """What the reference's bf16 rounding of sigmoid and silu costs serving:
+    the rwkv workload and steady decode ticks with the port's step-by-step
+    ``layers.sigmoid``/``silu`` (four elementwise kernels each) and with
+    ``torch.sigmoid``/``F.silu`` (one each), in the order port, torch, torch,
+    port, so that drift of the host's speed falls on both alike."""
+    from repro_torch.models import rwkv
+
+    port = (rwkv.sigmoid, rwkv.silu)
+    runs = {"port": [], "torch": []}
+    try:
+        for variant in ("port", "torch", "torch", "port"):
+            rwkv.sigmoid, rwkv.silu = port if variant == "port" else (torch.sigmoid, torch.nn.functional.silu)
+            _, summary, _ = _serve(eng, cfg, f"rwkv_serve_{variant}_activations")
+            tick = _profile_ticks(eng, cfg, phase=f"rwkv_decode_profile_{variant}_activations")
+            runs[variant].append({"tok_per_s": summary["gen_tokens"] / summary["wall_s"], **tick})
+    finally:
+        rwkv.sigmoid, rwkv.silu = port
+    mean = {v: {key: float(np.mean([r[key] for r in rs])) for key in ("tok_per_s", "wall_ms_per_tick", "kernels_per_tick")}
+            for v, rs in runs.items()}
+    log(phase="rwkv_activation_cost", runs=runs, mean=mean,
+        tok_per_s_lost=1.0 - mean["port"]["tok_per_s"] / mean["torch"]["tok_per_s"],
+        host_ms_per_tick_added=mean["port"]["wall_ms_per_tick"] - mean["torch"]["wall_ms_per_tick"],
+        kernels_per_tick_added=mean["port"]["kernels_per_tick"] - mean["torch"]["kernels_per_tick"])
+
+
+def phase_accum_kernels():
+    """``weighted_accum`` against its plain version; returns the max |err| at the
+    main path's shapes (smollm-360m's float32 gradient tensors)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import weighted_accum_ref
+
+    f32, bf = torch.float32, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(11)
+    main_err = 0.0
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def compare(label, acc, grad, scale, main=False):
+        nonlocal main_err
+        got = ops.weighted_accum(acc, grad, scale)
+        want = weighted_accum_ref(acc, grad, scale)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        ok = bool(torch.all(diff <= ACCUM_TOL + ACCUM_TOL * want.float().abs())) and got.dtype == acc.dtype
+        s_label = "device tensor 0.37" if isinstance(scale, torch.Tensor) else scale
+        log(phase="accum_kernels", kernel="weighted_accum", case=label, scale=s_label, acc=str(acc.dtype)[6:],
+            g=str(grad.dtype)[6:], max_abs_err=err, bit_equal=torch.equal(got, want), tol=ACCUM_TOL, ok=ok)
+        check(ok and bool(torch.isfinite(got.float()).all()),
+              f"weighted_accum {label} disagrees with its plain version")
+        if main:
+            main_err = max(main_err, err)
+
+    scales = (0.37, 1.0, torch.full((1,), 0.37, device="cuda"))
+    cases = [  # tests/test_kernels.py's four, a mixed-type pair, and smollm-360m's embedding gradient
+        ("test_kernels (1000,)", (1000,), f32, f32),
+        ("test_kernels (33, 77)", (33, 77), f32, f32),
+        ("test_kernels (8, 128) bf16", (8, 128), bf, bf),
+        ("test_kernels (5, 3, 7)", (5, 3, 7), f32, f32),
+        ("f32 acc, bf16 g (4097,)", (4097,), f32, bf),
+        ("bf16 acc, f32 g (4099,)", (4099,), bf, f32),
+        ("smollm embedding gradient (49152, 960)", (49152, 960), f32, f32),
+    ]
+    for label, shape, adt, gdt in cases:
+        acc, grad = rand(shape, adt), rand(shape, gdt)
+        for scale in scales:
+            compare(label, acc, grad, scale, main=label.startswith("smollm"))
+    # views at an odd element offset: the scalar head, then aligned vectors; and offsets that never line up
+    base_a, base_g = rand((4099,), f32), rand((4099,), f32)
+    for scale in scales:
+        compare("views at element offset 1 (unaligned head)", base_a[1:], base_g[1:], scale)
+        compare("views at element offsets 1 and 0 (scalar path)", base_a[1:], base_g[:-1], scale)
+    # in place at scale 1: the inline sum of the train step, bit for bit
+    for adt in (f32, bf):
+        acc, grad = rand((4097,), adt), rand((4097,), adt)
+        want = acc + grad
+        ops.weighted_accum(acc, grad, 1.0, out=acc)
+        torch.cuda.synchronize()
+        log(phase="accum_kernels", kernel="weighted_accum", case=f"in place, scale 1, {str(adt)[6:]}: acc + g",
+            bit_equal=torch.equal(acc, want))
+        check(torch.equal(acc, want), "weighted_accum in place at scale 1 equals the inline sum")
+    return main_err
+
+
+def phase_train():
+    """Train smollm-360m at full width and depth through the train CLI's driver;
+    returns (weighted_accum launches, the trainer's result)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.driver import DriverConfig, ElasticTrainer
+
+    t0 = time.perf_counter()
+    trainer = ElasticTrainer(DriverConfig(**TRAIN, seed=0, device="cuda", log_every=1))
+    cfg = trainer.model_cfg
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size, trainer.seq_len, cfg.remat) == (32, 960, 49152, 2048, True),
+          "smollm-360m at full width and depth, seq 2048, remat")
+    params = list(trainer.state["params"].parameters())
+    check((len(params), sum(p.numel() for p in params)) == (SMOLLM_TENSORS, SMOLLM_PARAMS),
+          "smollm-360m's gradient tree: 290 tensors, 361,821,120 floats")
+    torch.cuda.synchronize()
+    log(phase="train_init", seconds=time.perf_counter() - t0, params=SMOLLM_PARAMS, tensors=SMOLLM_TENSORS)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for rec in trainer.step_log:
+        log(phase="train_step", step=rec["step"], loss=rec["loss"], alloc=rec["alloc"], wall_ms=rec["wall_s"] * 1e3,
+            tokens=rec["tokens"], tok_per_s=rec["tokens"] / rec["wall_s"])
+    micro = sum(sum(rec["alloc"]) for rec in trainer.step_log)
+    predicted = SMOLLM_TENSORS * micro
+    log(phase="train", steps=result["steps"], wall_s=wall, first_loss=result["first_loss"],
+        last_loss=result["last_loss"], microbatches=micro, launches=launches, predicted_weighted_accum=predicted,
+        peak_memory_gb=peak / 1e9, epoch_allocs=[e["alloc"] for e in result["epoch_log"]],
+        memberships=result["memberships"], final_allocation=result["final_allocation"])
+    check(result["steps"] == TRAIN["steps"] == len(trainer.step_log), "the train run took its 8 steps")
+    check(all(np.isfinite(rec["loss"]) for rec in trainer.step_log), "every training loss is finite")
+    check(launches["weighted_accum"] == predicted > 0, f"weighted_accum launches {launches} vs {predicted} predicted")
+    check(all(n == 0 for k, n in launches.items() if k != "weighted_accum"), "training launches no other kernel")
+    # the same schedule at smoke size on the CPU: simulated timing reads no model, so the trajectory is exact
+    small = ElasticTrainer(DriverConfig(**TRAIN, seed=0, device="cpu", smoke=True, seq=16, verbose=False)).run()
+    same = {key: small[key] == result[key] for key in ("memberships", "final_allocation", "epoch")}
+    same["epoch_allocs"] = [e["alloc"] for e in small["epoch_log"]] == [e["alloc"] for e in result["epoch_log"]]
+    log(phase="train_vs_cpu_smoke", **same)
+    check(all(same.values()), "the allocation trajectory and membership log equal the CPU smoke run's")
+    _profile_microbatch(trainer)
+    del trainer
+    return launches["weighted_accum"], result
+
+
+def phase_train_measured():
+    """The train CLI's default timing: MeasuredTimingSource, whose wall clock
+    (each step ended on ``.item()``) is split over the ranks by their
+    microbatches and read by the controller at the epoch's end.  Two steps
+    of smollm-360m at full width and depth, 4 microbatches over 2 ranks, one
+    epoch; the per-rank times the controller receives are logged."""
+    from repro_torch.runtime.driver import DriverConfig, ElasticTrainer
+
+    trainer = ElasticTrainer(DriverConfig(arch="smollm-360m", steps=2, micro_bs=1, total_micro=4, n_workers=2,
+                                          steps_per_epoch=2, policy="adaptive", mode="while", seed=0,
+                                          device="cuda", log_every=1))
+    observed = []
+    observe = trainer.ctl.observe
+
+    def recording_observe(t_s, t_c=0.0):
+        observed.append({"t_s": np.asarray(t_s, dtype=float).tolist(), "t_c": t_c})
+        return observe(t_s, t_c=t_c)
+
+    trainer.ctl.observe = recording_observe
+    result = trainer.run()
+    steps = [{"step": r["step"], "loss": r["loss"], "alloc": r["alloc"], "wall_ms": r["wall_s"] * 1e3}
+             for r in trainer.step_log]
+    log(phase="train_measured", timing=result["timing"], steps=steps, controller_inputs=observed,
+        epoch_log=result["epoch_log"], final_allocation=result["final_allocation"])
+    check(result["timing"] == "measured" and result["steps"] == 2, "the measured-timing run took its 2 steps")
+    check(all(np.isfinite(r["loss"]) for r in steps), "every measured-timing loss is finite")
+    check(len(observed) == 1 and all(t > 0 and np.isfinite(t) for t in observed[0]["t_s"]),
+          "the controller received one finite, positive time per rank")
+    wall = sum(r["wall_s"] for r in trainer.step_log)
+    check(abs(sum(observed[0]["t_s"]) - wall) <= 1e-6 * wall, "the per-rank times sum to the steps' wall clock")
+    del trainer
+
+
+def _profile_microbatch(trainer):
+    """One microbatch of the train step (forward, remat backward, accumulation
+    into the gradient sum): host wall without the profiler, then the device
+    time of its kernels, their count and the kernels that take it."""
+    from repro_torch.dist.hetero_step import _micro_grads
+    from repro_torch.kernels import ops
+
+    model = trainer.state["params"]
+    params = list(model.parameters())
+    b = next(trainer.batcher.epoch(0, np.asarray(trainer.alloc)))
+    x, y = (torch.from_numpy(b[key][0, 0]).cuda().long() for key in ("inputs", "targets"))
+    gsum = [torch.zeros_like(p) for p in params]
+    one = torch.ones((1,), device="cuda")
+
+    def body():
+        _, _, g = _micro_grads(model, params, x, y, trainer.model_cfg, trainer.scfg)
+        ops.weighted_accum_tree(gsum, g, one, out=gsum)
+
+    body()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    body()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = kernel_records(body)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    log(phase="train_profile", what="one microbatch: loss, autograd.grad with remat, weighted_accum into the sum",
+        wall_ms=wall * 1e3, device_ms=busy_us / 1e3 if busy_us else "not measured",
+        device_busy_share=busy_us / 1e6 / wall if busy_us else "not measured",
+        kernels=sum(e.count for e in kernels),
+        top=[{"name": e.key[:70], "ms": e.self_device_time_total / 1e3, "calls": e.count} for e in top])
+    del gsum
+
+
+def phase_train_masked():
+    """Masked mode against while mode from one start on one batch: the first
+    step's loss and gradient norm agree within MASKED_RTOL; masked takes a
+    second step with finite results.  The allocation is the train run's
+    second epoch's, [3, 2, 2, 1], over buffers 3 deep, so masked mode pays 12
+    microbatches a step where while mode runs 8, and 4 slots are masked out."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import HeteroBatcher, SyntheticLM
+    from repro_torch.dist import HeteroStepConfig, build_train_step, init_train_state
+
+    cfg = get_config("smollm-360m")
+    S, R, W, C = cfg.max_seq, 4, 3, 8
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, n_sequences=2 * C, seed=0)
+    batches = list(HeteroBatcher(data, R, 1, W, seed=0).epoch(0, np.array([3, 2, 2, 1])))
+    metrics = {}
+    for mode, n_steps in (("while", 1), ("masked", 2)):
+        scfg = HeteroStepConfig(w_max=W, micro_bs=1, seq_len=S, mode=mode)
+        state = init_train_state(cfg, scfg, seed=0, device="cuda")
+        step = build_train_step(cfg, scfg)
+        out = []
+        t0 = time.perf_counter()
+        for b in batches[:n_steps]:
+            batch = {key: torch.from_numpy(b[key]).cuda().long() for key in ("inputs", "targets")}
+            state, m = step(state, dict(batch, alloc=b["alloc"]))
+            out.append({key: float(m[key]) for key in ("loss", "grad_norm", "tokens")})
+        torch.cuda.synchronize()
+        metrics[mode] = out
+        log(phase="train_masked", mode=mode, steps=out, wall_s=time.perf_counter() - t0,
+            microbatches_per_step=R * W if mode == "masked" else int(b["alloc"].sum()))
+        del state, step
+        torch.cuda.empty_cache()
+    gap = {key: abs(metrics["masked"][0][key] - metrics["while"][0][key]) / abs(metrics["while"][0][key])
+           for key in ("loss", "grad_norm")}
+    log(phase="train_masked_vs_while", rel_gap=gap, rtol=MASKED_RTOL)
+    check(all(np.isfinite(v) for m in metrics["masked"] for v in m.values()), "masked steps are finite")
+    check(metrics["masked"][0]["tokens"] == metrics["while"][0]["tokens"], "both modes count the same tokens")
+    check(max(gap.values()) <= MASKED_RTOL, f"masked vs while first step {gap}")
+    return gap
+
+
+def accum_timing_row(launches, main_err):
+    """The weighted_accum row: one accumulation over smollm-360m's whole float32
+    gradient tree (290 launches) and over the embedding alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import weighted_accum_ref
+    from repro_torch.kernels.weighted_accum import scale_tensor
+    from repro_torch.models import Transformer
+
+    shapes = [tuple(p.shape) for p in Transformer(get_config("smollm-360m"), device="meta").parameters()]
+    n = sum(int(np.prod(s)) for s in shapes)
+    check((len(shapes), n) == (SMOLLM_TENSORS, SMOLLM_PARAMS), "the timed tree is smollm-360m's gradient tree")
+    acc = [torch.randn(s, device="cuda") for s in shapes]
+    grads = [torch.randn(s, device="cuda") for s in shapes]
+    one = scale_tensor(1.0, torch.device("cuda", torch.cuda.current_device()))
+
+    def tree():
+        ops.weighted_accum_tree(acc, grads, one, out=acc)
+
+    def plain():
+        for a, gr in zip(acc, grads):
+            weighted_accum_ref(a, gr, one)
+
+    def library():
+        for a, gr in zip(acc, grads):
+            torch.add(a, gr, alpha=1.0)
+
+    emb_a, emb_g = acc[0], grads[0]
+    check(emb_a.shape == (49152, 960), "the first tensor is the embedding")
+    nbytes = 3 * 4 * n  # acc and g read once, out written once, float32
+    row = dict(
+        name="weighted_accum", route="cuda", source="src/repro_torch/kernels/csrc/weighted_accum.cu",
+        replaces="src/repro/kernels/weighted_accum.py:32", launches=launches, max_abs_err=main_err,
+        ms=device_ms(tree, "weighted_accum tree", iters=10, warmup=2),
+        plain_ms=device_ms(plain, "weighted_accum plain tree", iters=5, warmup=1),
+        library_ms=device_ms(library, "torch.add tree", iters=10, warmup=2),
+        call_ms=time_ms(tree, iters=10, warmup=2),
+        plain_call_ms=time_ms(plain, iters=5, warmup=1),
+        library_call_ms=time_ms(library, iters=10, warmup=2),
+        embed_ms=device_ms(lambda: ops.weighted_accum(emb_a, emb_g, one, out=emb_a), "weighted_accum embedding"),
+        embed_plain_ms=device_ms(lambda: weighted_accum_ref(emb_a, emb_g, one), "weighted_accum plain embedding"),
+        embed_library_ms=device_ms(lambda: torch.add(emb_a, emb_g, alpha=1.0), "torch.add embedding"),
+        embed_bound_ms=3 * 4 * emb_a.numel() / PEAK_BYTES * 1e3,
+        flops=2 * n, bytes=nbytes, peak="float32 CUDA cores", peak_flops=PEAK_FP32_FLOPS,
+        shape=f"smollm-360m gradient tree: {SMOLLM_TENSORS} float32 tensors, {n} elements, one launch each; "
+              "embed_*: the (49152, 960) embedding alone",
+    )
+    del acc, grads
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_timing(main_err, launches, paged_lengths):
@@ -698,6 +1027,7 @@ def phase_timing(main_err, launches, paged_lengths):
         label = f"T={t_len} H={heads}"
         scaling[label] = device_ms(lambda: rw.rwkv6_scan_cuda(*a, chunk=C), f"rwkv6_scan {label}")
     log(phase="rwkv_scan_scaling", device_ms=scaling, note="B=1, D=64, chunk 32: T/32 chunks per block, H blocks")
+    rows.append(accum_timing_row(launches["accum"], main_err["weighted_accum"]))
     for r in rows:
         t_ops, t_bytes = r["flops"] / r["peak_flops"] * 1e3, r["bytes"] / PEAK_BYTES * 1e3
         r["bound_ms"] = max(t_ops, t_bytes)
@@ -727,6 +1057,7 @@ def main() -> int:
     paged_lengths = [int(len(r.prompt) + r.max_gen // 2) for r in _workload(cfg)[:8]]
     main_err = phase_kernels(paged_lengths)
     main_err["rwkv6_scan"] = phase_rwkv_kernels()
+    main_err["weighted_accum"] = phase_accum_kernels()
 
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
@@ -739,11 +1070,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     rwkv_launches = phase_rwkv_serve()
     torch.cuda.empty_cache()
+    accum_launches, _ = phase_train()
+    torch.cuda.empty_cache()
+    phase_train_masked()
+    torch.cuda.empty_cache()
+    phase_train_measured()
+    torch.cuda.empty_cache()
 
     rows = phase_timing(
         main_err,
         {"flash": flash_launches["flash_attention"], "paged": paged_launches["paged_attention"],
-         "rwkv": rwkv_launches["rwkv6_scan"]},
+         "rwkv": rwkv_launches["rwkv6_scan"], "accum": accum_launches},
         paged_lengths,
     )
     log(phase="done", seconds=time.perf_counter() - t_start, nvidia_smi=smi)

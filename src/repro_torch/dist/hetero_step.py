@@ -1,0 +1,279 @@
+"""The paper's heterogeneous train step: per-rank variable microbatch counts.
+
+The port of ``repro.dist.hetero_step`` for one process.  A step consumes
+rank-major padded buffers
+
+    inputs/targets: (R, W_max, micro_bs, seq)   alloc: (R,) int
+
+where rank *r* trains on its first ``alloc[r]`` microbatches and the rest is
+padding.  Two executions of the same math:
+
+* ``mode="while"`` — each rank runs ITS OWN number of microbatches (a rank
+  allocated 2 does 2 forward/backwards, not W_max), as the reference's
+  per-rank ``lax.while_loop`` does (``_while_accum``);
+* ``mode="masked"`` — every one of the W_max slots is paid on every rank and
+  weighted by ``1[j < alloc[r]]`` (``_masked_grads``).
+
+One process holds every rank, as the reference's driver does on one device
+(``repro/runtime/driver.py:242`` builds a (1, 1) mesh there): the cross-rank
+reduction is then the identity, so ``collective="ring"`` and
+``fsdp="gather"`` are accepted and validated as in the reference and change
+nothing on one shard.  Their multi-process ``torch.distributed`` form is a
+later slice.
+
+Every mode normalizes the summed gradient by the GLOBAL token count, so the
+update depends only on the union of microbatches, not on which rank computed
+which (the paper's eq. 1 allocation-invariance).
+
+The port's route for the accumulation (the reference sums inline): each
+microbatch's gradients come from ``torch.autograd.grad`` and are added into
+the gradient sum by the ``weighted_accum`` kernel (``kernels.ops``), in
+place, one launch per tensor.  While mode adds ``g.to(gsum.dtype)`` at scale
+1, which equals the reference's ``a + b.astype(a.dtype)``
+(``repro/dist/hetero_step.py:219``) bit for bit; masked mode builds each
+slot's rank sum with the rank's 0/1 weight as the scale, read from the device
+(no host sync), then adds the slot to the sum at scale 1, as the reference's
+``tensordot`` over ranks (``:190``) does in another summation order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.convert import reference_ndims
+from repro_torch.optim import (
+    AdamWConfig,
+    SGDConfig,
+    adamw_init,
+    adamw_update,
+    clip_by_global_norm,
+    constant,
+    global_norm,
+    sgd_init,
+    sgd_update,
+)
+
+__all__ = ["HeteroStepConfig", "init_train_state", "build_train_step"]
+
+
+# the axes of one process holding every rank (the reference's driver on one
+# device builds ``make_test_mesh((1, 1))`` with these names)
+LOCAL_AXES = ("data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class HeteroStepConfig:
+    """Static configuration of the allocation-aware step (the reference's fields and checks)."""
+
+    w_max: int  # per-rank buffer depth (max microbatches any rank may get)
+    micro_bs: int  # sequences per microbatch
+    seq_len: int
+    mode: str = "masked"  # "while" | "masked"
+    alloc_axis: str = "data"  # mesh axis the allocation ranks live on
+    # False: replicated params.  True: params sharded over fsdp_axes with
+    # per-microbatch gathers (masked mode only).  "gather": one gather per
+    # step outside the per-rank loops (while mode only).  On one shard both
+    # are the identity.
+    fsdp: bool | str = False
+    fsdp_axes: tuple[str, ...] = ("data",)
+    optimizer: str = "adamw"  # "adamw" | "sgd"
+    grad_dtype: str = "float32"  # accumulation dtype
+    collective: str = "psum"  # "psum" | "ring" (while-mode gradient reduce)
+    lr: float = 1e-3  # default when no lr_fn is passed
+    clip_norm: float = 0.0  # 0 = no clipping
+
+    def __post_init__(self) -> None:
+        if self.mode not in ("while", "masked"):
+            raise ValueError(f"mode must be 'while' or 'masked', got {self.mode!r}")
+        if self.optimizer not in ("adamw", "sgd"):
+            raise ValueError(f"optimizer must be 'adamw' or 'sgd', got {self.optimizer!r}")
+        if self.collective not in ("psum", "ring"):
+            raise ValueError(f"collective must be 'psum' or 'ring', got {self.collective!r}")
+        if self.w_max < 1 or self.micro_bs < 1 or self.seq_len < 1:
+            raise ValueError("w_max, micro_bs and seq_len must all be >= 1")
+        if self.fsdp not in (False, True, "gather"):
+            raise ValueError(f"fsdp must be False, True or 'gather', got {self.fsdp!r}")
+        if self.fsdp == "gather" and self.mode != "while":
+            raise ValueError(
+                "fsdp='gather' is the while-mode state-sharding path (one gather per "
+                "step outside the loops); masked mode shards params with fsdp=True "
+                "and lets GSPMD place the per-microbatch gathers."
+            )
+
+    def validate(self, axis_names: tuple[str, ...] = LOCAL_AXES) -> "HeteroStepConfig":
+        """Check legality against a mesh's axis names.  In
+        while mode ranks run DIFFERENT trip counts, so a collective inside the
+        loop body (per-microbatch FSDP gathers over the allocation axis) would
+        run a different number of times per rank: a deadlock on real
+        hardware.  ``fsdp="gather"`` hoists the gather out of the loops and is
+        legal; so is masked mode."""
+        axis_names = tuple(axis_names)
+        if self.alloc_axis not in axis_names:
+            raise ValueError(f"alloc_axis {self.alloc_axis!r} not in mesh axes {axis_names}")
+        if self.mode == "while" and self.fsdp is True and self.alloc_axis in self.fsdp_axes:
+            raise ValueError(
+                "while-mode with per-microbatch FSDP over the allocation axis "
+                f"{self.alloc_axis!r} would deadlock: per-rank trip counts diverge but "
+                "FSDP all-gathers inside the loop body are collective over that axis. "
+                "Use fsdp='gather' (one gather per step, outside the loops), "
+                "mode='masked', or move FSDP off the allocation axis."
+            )
+        return self
+
+
+def _micro_loss_sum(params, inputs, targets, cfg: ModelConfig, scfg: HeteroStepConfig):
+    """Summed (not averaged) loss of ONE microbatch: ``(loss * tokens, tokens)``.
+    Dividing the accumulated sum by the accumulated token count after the
+    reduction is what makes the update allocation-invariant."""
+    del scfg  # static shapes already baked into the batch
+    loss, aux = transformer.loss_fn(params, {"inputs": inputs, "targets": targets}, cfg)
+    tokens = aux["tokens"]
+    return loss * tokens, tokens
+
+
+def init_train_state(
+    cfg: ModelConfig,
+    scfg: HeteroStepConfig,
+    seed: int = 0,
+    opt_cfg: AdamWConfig | SGDConfig | None = None,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """``{"params": Transformer (requires grad), "opt", "step": int32 0}`` on ``device``."""
+    params = transformer.init_params(cfg, seed, device).requires_grad_(True)
+    plist = list(params.parameters())
+    opt = adamw_init(plist, opt_cfg or AdamWConfig()) if scfg.optimizer == "adamw" else sgd_init(plist)
+    return {"params": params, "opt": opt, "step": torch.zeros((), dtype=torch.int32, device=plist[0].device)}
+
+
+# ---------------------------------------------------------------------------
+# gradient accumulation bodies
+# ---------------------------------------------------------------------------
+
+
+def _micro_grads(model, params, x, y, cfg, scfg):
+    loss_sum, tokens = _micro_loss_sum(model, x, y, cfg, scfg)
+    grads = torch.autograd.grad(loss_sum, params)
+    return loss_sum.detach(), tokens.detach(), grads
+
+
+def _zero_carry(params, grad_dtype):
+    dev = params[0].device
+    gz = [torch.zeros(p.shape, dtype=grad_dtype, device=dev) for p in params]
+    return gz, torch.zeros((), dtype=torch.float32, device=dev), torch.zeros((), dtype=torch.float32, device=dev)
+
+
+def _while_accum(model, params, inputs, targets, alloc, cfg, scfg):
+    """Each rank does exactly ``alloc[r]`` microbatches (host trip counts)."""
+    gdt = getattr(torch, scfg.grad_dtype)
+    gsum, lsum, tsum = _zero_carry(params, gdt)
+    one = torch.ones((1,), dtype=torch.float32, device=params[0].device)
+    W = inputs.shape[1]
+    for r in range(inputs.shape[0]):
+        for j in range(min(int(alloc[r]), W)):
+            ls, tk, g = _micro_grads(model, params, inputs[r, j], targets[r, j], cfg, scfg)
+            # the port's route: acc + 1.0 * g.to(acc.dtype) in float32, in place
+            # (== the reference's inline a + b.astype(a.dtype), hetero_step.py:219)
+            kops.weighted_accum_tree(gsum, [t.to(gdt) for t in g], one, out=gsum)
+            lsum = lsum + ls
+            tsum = tsum + tk
+    return gsum, lsum, tsum
+
+
+def _masked_grads(model, params, inputs, targets, alloc, cfg, scfg):
+    """Every one of the W slots on every rank, weighted by ``1[j < alloc[r]]``."""
+    gdt = getattr(torch, scfg.grad_dtype)
+    dev = params[0].device
+    R, W = inputs.shape[:2]
+    alloc_t = torch.as_tensor(np.asarray(alloc), dtype=torch.int64).to(dev)
+    mask = (torch.arange(W, device=dev)[None, :] < alloc_t[:, None]).float()  # (R, W) on the device
+    gsum, lsum, tsum = _zero_carry(params, gdt)
+    one = torch.ones((1,), dtype=torch.float32, device=dev)
+    for j in range(W):
+        slot = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in params]
+        slot_l = torch.zeros((), dtype=torch.float32, device=dev)
+        slot_t = torch.zeros((), dtype=torch.float32, device=dev)
+        for r in range(R):
+            ls, tk, g = _micro_grads(model, params, inputs[r, j], targets[r, j], cfg, scfg)
+            m = mask[r, j : j + 1]  # the rank's weight for this slot, read by the kernel on the device
+            # the port's route for the tensordot of hetero_step.py:190: slot += m_r * g_r in float32
+            kops.weighted_accum_tree(slot, g, m, out=slot)
+            slot_l = slot_l + m[0] * ls
+            slot_t = slot_t + m[0] * tk
+        kops.weighted_accum_tree(gsum, [s.to(gdt) for s in slot], one, out=gsum)
+        lsum = lsum + slot_l
+        tsum = tsum + slot_t
+    return gsum, lsum, tsum
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+
+
+def build_train_step(
+    cfg: ModelConfig,
+    scfg: HeteroStepConfig,
+    lr_fn=None,
+    opt_cfg: AdamWConfig | SGDConfig | None = None,
+):
+    """Build ``step(state, batch) -> (state, metrics)``.
+
+    ``batch``: ``{"inputs": (R, W, mb, S), "targets": ..., "alloc": (R,)}``,
+    tensors on the parameters' device except ``alloc``, which the host reads
+    for the trip counts (numpy or a tensor).  The state is updated in place
+    (parameters, moments) and returned with ``step + 1``.  ``metrics``:
+    ``{"loss", "tokens", "grad_norm", "lr"}`` float32 device scalars; ``loss``
+    is the global token-weighted mean cross-entropy BEFORE the update."""
+    scfg.validate()
+    lr_fn = lr_fn or constant(scfg.lr)
+    if scfg.optimizer == "adamw":
+        ocfg = opt_cfg or AdamWConfig()
+        opt_update = adamw_update
+    else:
+        ocfg = opt_cfg or SGDConfig()
+        opt_update = sgd_update
+
+    def step(state, batch):
+        alloc = batch["alloc"]
+        alloc = alloc.cpu().numpy() if isinstance(alloc, torch.Tensor) else np.asarray(alloc)
+        _host_check_alloc(alloc, scfg.w_max)
+        model = state["params"]
+        params = list(model.parameters())
+        inputs, targets = batch["inputs"], batch["targets"]
+        if scfg.mode == "masked":
+            gsum, lsum, tsum = _masked_grads(model, params, inputs, targets, alloc, cfg, scfg)
+        else:
+            # one shard: the cross-rank psum / ring of the reference is the identity
+            gsum, lsum, tsum = _while_accum(model, params, inputs, targets, alloc, cfg, scfg)
+        denom = torch.clamp(tsum, min=1.0)
+        # in place where the sum is float32 already (it is ours): g.float() / denom
+        grads = [g.div_(denom) if g.dtype == torch.float32 else g.float() / denom for g in gsum]
+        if scfg.clip_norm > 0.0:
+            grads, gnorm = clip_by_global_norm(grads, scfg.clip_norm)
+        else:
+            gnorm = global_norm(grads)
+        lr = lr_fn(state["step"])
+        _, opt = opt_update(grads, state["opt"], params, lr, ocfg, ndims=reference_ndims(model, cfg))
+        new_state = {"params": model, "opt": opt, "step": state["step"] + 1}
+        metrics = {"loss": lsum / denom, "tokens": tsum, "grad_norm": gnorm, "lr": lr}
+        return new_state, metrics
+
+    return step
+
+
+def _host_check_alloc(alloc, w_max: int) -> None:
+    """Reject ``alloc > w_max``: the loops take at most w_max microbatches per
+    rank, so the excess would be silently dropped instead of trained on."""
+    a = np.asarray(alloc)
+    if a.size and int(a.max()) > w_max:
+        raise ValueError(
+            f"allocation {int(a.max())} exceeds w_max={w_max}: the step buffer holds "
+            "only w_max microbatch slots per rank, the excess would be silently "
+            "clamped. Lower the allocation or rebuild with a larger w_max."
+        )

@@ -12,13 +12,23 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rwkv6_scan as _rw
+from repro_torch.kernels import weighted_accum as _wa
 
-__all__ = ["flash_attention", "paged_attention", "rwkv6_scan", "launch_counts", "reset_launch_counts"]
+__all__ = [
+    "flash_attention",
+    "paged_attention",
+    "rwkv6_scan",
+    "weighted_accum",
+    "weighted_accum_tree",
+    "launch_counts",
+    "reset_launch_counts",
+]
 
 _WRAPPERS = {
     "flash_attention": _fa.flash_attention_cuda,
     "paged_attention": _pa.paged_attention_cuda,
     "rwkv6_scan": _rw.rwkv6_scan_cuda,
+    "weighted_accum": _wa.weighted_accum_cuda,
 }
 
 
@@ -50,6 +60,29 @@ def rwkv6_scan(r, k, v, w, u, s0=None, chunk: int = 32):
         return _rw.rwkv6_scan_cuda(r, k, v, w, u, s0, chunk=chunk)
     _rw.chunk_for(r.shape[1], chunk)
     return _rw.rwkv6_scan_ref(r, k, v, w, u, s0)
+
+
+def weighted_accum(acc, g, scale, out=None):
+    """``acc + scale * g`` in float32 arithmetic, cast to acc's dtype; see
+    ``kernels.weighted_accum``.  ``out`` (optional) receives the result and may
+    be ``acc`` itself; the plain version then copies into it."""
+    if _route(acc) == "cuda":
+        return _wa.weighted_accum_cuda(acc, g, scale, out=out)
+    res = _wa.weighted_accum_ref(acc, g, scale)
+    return res if out is None else out.copy_(res)
+
+
+def weighted_accum_tree(acc_tree, g_tree, scale, out=None):
+    """``weighted_accum`` over matching lists of tensors, one launch per
+    tensor; ``out`` is None or a matching list (it may be ``acc_tree``)."""
+    if len(acc_tree) != len(g_tree) or (out is not None and len(out) != len(acc_tree)):
+        raise ValueError(f"trees of {len(acc_tree)} and {len(g_tree)} tensors")
+    if not acc_tree:
+        return []
+    if isinstance(scale, float | int) and _route(acc_tree[0]) == "cuda":
+        scale = _wa.scale_tensor(scale, acc_tree[0].device)  # one fill for the whole tree
+    outs = [None] * len(acc_tree) if out is None else out
+    return [weighted_accum(a, g, scale, out=o) for a, g, o in zip(acc_tree, g_tree, outs)]
 
 
 def launch_counts() -> dict[str, int]:

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "flash_attention_ref", "paged_attention_ref", "rwkv6_scan_ref"]
+__all__ = ["NEG_INF", "flash_attention_ref", "paged_attention_ref", "rwkv6_scan_ref", "weighted_accum_ref"]
 
 NEG_INF = -2.0e38  # large finite; avoids NaN from (-inf) - (-inf)
 
@@ -128,3 +128,10 @@ def rwkv6_scan_ref(
         ys.append(torch.einsum("bhk,bhkv->bhv", rt, s + uf * kv))
         s = wt[..., :, None] * s + kv
     return torch.stack(ys, dim=1).to(r.dtype), s
+
+
+def weighted_accum_ref(acc: torch.Tensor, g: torch.Tensor, scale: float | torch.Tensor) -> torch.Tensor:
+    """``acc + scale * g`` computed in float32 (a multiply, then an add), cast
+    back to acc's dtype (``repro.kernels.ref.weighted_accum_ref``)."""
+    scale = torch.as_tensor(scale, device=acc.device).reshape(())
+    return (acc.float() + scale.float() * g.float()).to(acc.dtype)

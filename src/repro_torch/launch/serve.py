@@ -11,7 +11,7 @@ for the port's traces and obs slices.
 ``--attn-impl``: ``naive`` and ``flash`` pick the prefill attention over the
 dense per-slot cache (``flash`` runs the CUDA flash kernel on the card);
 ``paged`` switches the KV layout to the shared page pool and decodes through
-the CUDA paged kernel.  ``blocked`` waits for the training slice.
+the CUDA paged kernel.  ``blocked`` is ported for the training slice only.
 
 Example (on a card; add ``--device cpu`` to run the plain versions on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --attn-impl paged
@@ -78,7 +78,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     if args.attn_impl == "blocked":
-        ap.error("--attn-impl blocked waits for the training slice of the port")
+        ap.error("--attn-impl blocked is ported for the training slice only; serve with naive, flash or paged")
     worst_case = args.prompt_lens[1] + args.gen_lens[1]
     paged = args.attn_impl == "paged"
     if args.preempt and not paged:

@@ -1,8 +1,17 @@
-"""The port's model code: serving forward passes in PyTorch over the CUDA kernels."""
+"""The port's model code: training and serving forward passes in PyTorch over the CUDA kernels."""
 
 from repro_torch.models.attention import PagedLayout
 from repro_torch.models.config import LayerSpec, MambaConfig, ModelConfig, MoEConfig, RWKVConfig
-from repro_torch.models.transformer import Transformer, compute_copy, decode_step, init_cache, init_params, prefill
+from repro_torch.models.transformer import (
+    Transformer,
+    compute_copy,
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    loss_fn,
+    prefill,
+)
 
 __all__ = [
     "LayerSpec",
@@ -14,7 +23,9 @@ __all__ = [
     "Transformer",
     "compute_copy",
     "decode_step",
+    "forward",
     "init_cache",
     "init_params",
+    "loss_fn",
     "prefill",
 ]

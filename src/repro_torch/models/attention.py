@@ -1,10 +1,13 @@
-"""Attention for serving: GQA, causal + sliding-window, prefill / decode.
+"""Attention: GQA, causal + sliding-window, train / prefill / decode.
 
-The port of ``repro.models.attention`` at the parts serving needs:
+The port of ``repro.models.attention``:
 
-* ``naive`` prefill materialises the (Sq, Sk) scores in plain PyTorch;
+* ``naive`` materialises the (Sq, Sk) scores in plain PyTorch (training and
+  prefill);
+* ``blocked`` is the online softmax over (q_chunk, kv_chunk) blocks in
+  float32, the reference's training attention, differentiated by autograd;
 * ``flash`` prefill goes through ``kernels.ops.flash_attention`` (the CUDA
-  kernel for CUDA tensors);
+  kernel for CUDA tensors; it has no backward, so training refuses it);
 * decode against the dense per-slot cache is plain PyTorch, and decode against
   the paged pool goes through ``kernels.ops.paged_attention``.
 
@@ -29,6 +32,7 @@ __all__ = [
     "PagedLayout",
     "Attention",
     "attention_decode",
+    "attention_train",
     "attention_prefill",
     "init_kv_cache",
     "init_paged_kv_cache",
@@ -129,14 +133,70 @@ def _attend_naive(q, k, v, q_pos, k_pos, cfg: ModelConfig, window):
     return out.reshape(B, Sq, H, Dh)
 
 
+def _attend_blocked(q, k, v, q_pos, k_pos, cfg: ModelConfig, window, q_chunk=512, kv_chunk=512):
+    """Online softmax over (q_chunk, kv_chunk) blocks in float32, the
+    reference's ``_attend_blocked``: every block is computed (masked by the
+    additive bias, as there), and the denominator is clamped to 1e-37.  The
+    reference checkpoints each block step so its backward recomputes the
+    scores; here the layer-level ``torch.utils.checkpoint`` of ``cfg.remat``
+    bounds memory instead (one layer's blocks live in its backward)."""
+    B, Sq, H, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Sk)
+    if Sq % q_chunk or Sk % kv_chunk:
+        raise ValueError(f"blocked attention needs Sq={Sq} and Sk={Sk} divisible by {q_chunk} and {kv_chunk}")
+    nq, nk = Sq // q_chunk, Sk // kv_chunk
+    scale = Dh**-0.5
+    qg = q.reshape(B, nq, q_chunk, Hkv, G, Dh).float()
+    kc = k.reshape(B, nk, kv_chunk, Hkv, Dh).float()
+    vc = v.reshape(B, nk, kv_chunk, Hkv, Dh).float()
+    qp, kp = q_pos.reshape(nq, q_chunk), k_pos.reshape(nk, kv_chunk)
+    outs = []
+    for qi in range(nq):
+        qblk = qg[:, qi]  # (B, qc, Hkv, G, Dh)
+        m = torch.full((B, Hkv, G, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, Hkv, G, q_chunk), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, Hkv, G, q_chunk, Dh), dtype=torch.float32, device=q.device)
+        for ki in range(nk):
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kc[:, ki]) * scale
+            s = _softcap(s, cfg.attn_logit_softcap)
+            s = s + _mask_bias(qp[qi], kp[ki], window)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vc[:, ki])
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-37)[..., None]  # (B, Hkv, G, qc, Dh)
+        outs.append(out.permute(0, 3, 1, 2, 4))  # (B, qc, Hkv, G, Dh)
+    return torch.stack(outs, dim=1).reshape(B, Sq, H, Dh).to(v.dtype)
+
+
 def _attend(q, k, v, q_pos, k_pos, cfg: ModelConfig, window, impl: str):
     if impl == "naive":
         return _attend_naive(q, k, v, q_pos, k_pos, cfg, window)
+    if impl == "blocked":
+        return _attend_blocked(q, k, v, q_pos, k_pos, cfg, window)
     if impl == "flash":
         return kops.flash_attention(q, k, v, q_pos, k_pos, causal=True, window=window, softcap=cfg.attn_logit_softcap)
-    if impl == "blocked":
-        raise NotImplementedError("attention impl 'blocked' waits for the training slice of the port")
     raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def attention_train(
+    p: Attention, x: torch.Tensor, cfg: ModelConfig, attn_type: str, impl: str = "blocked"
+) -> torch.Tensor:
+    """Full-sequence (training) attention, x: (B, S, d) -> (B, S, d).  The
+    flash kernel has no backward, so ``impl="flash"`` is refused while
+    autograd records."""
+    B, S, _ = x.shape
+    if impl == "flash" and torch.is_grad_enabled():
+        raise NotImplementedError("the flash kernel has no backward; train with attn_impl 'blocked' or 'naive'")
+    positions = torch.arange(S, device=x.device)
+    window = cfg.sliding_window if attn_type == "local" else None
+    q, k, v = _qkv(p, x, cfg, positions)
+    out = _attend(q, k, v, positions, positions, cfg, window, impl)
+    return linear(out.reshape(B, S, cfg.q_dim), p.wo)
 
 
 def attention_decode(

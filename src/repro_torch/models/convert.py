@@ -14,6 +14,12 @@ becomes ``final_norm.gain``/``final_norm.bias``, and an RWKV layer's
 ``params["body"]["layer0"]["rwkv"]["ln1"]["gain"][rep]`` is the port's
 ``layers[rep].rwkv.ln1.gain``.
 
+The train state crosses too (``train_state_from_jax``/``train_state_to_jax``):
+the optimizer's per-parameter trees (AdamW ``mu``/``nu``, SGD ``velocity``)
+map like the parameters, to lists in ``named_parameters`` order, and the
+counters to device scalars.  ``reference_ndims`` gives each parameter's rank
+in the reference's stacked tree, which decides weight decay.
+
 The tree's leaves are numpy arrays (``jax.tree.map(np.asarray, params)``);
 this module imports no JAX.
 """
@@ -27,7 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
 
-__all__ = ["params_from_jax", "params_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "reference_ndims", "train_state_from_jax", "train_state_to_jax"]
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict:
@@ -64,32 +70,25 @@ def _to_tensor(a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # numpy's bfloat16 (ml_dtypes) is no buffer torch reads; fp32 holds it exactly
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a))
+    return torch.from_numpy(np.array(a))  # a copy: the caller's arrays (JAX's, read-only) are never written
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig, device: str | torch.device = "cuda") -> Transformer:
-    """The reference ``init_params`` tree (numpy leaves) as the port's parameters on ``device``."""
-    state = _flatten({key: val for key, val in tree.items() if key not in ("body", "tail")})
+def _named_from_tree(tree: dict, cfg: ModelConfig) -> dict:
+    """{port parameter name: leaf} of a reference-shaped tree (body leaves unstacked)."""
+    named = _flatten({key: val for key, val in tree.items() if key not in ("body", "tail")})
     for n, (group, key, rep) in enumerate(_layer_slots(cfg)):
         for name, leaf in _flatten(tree[group][key]).items():
-            state[f"layers.{n}.{name}"] = leaf if rep is None else np.asarray(leaf)[rep]
-    model = Transformer(cfg, resolve_device(device))
-    model.load_state_dict({k: _to_tensor(v) for k, v in state.items()}, strict=True)
-    return model.requires_grad_(False)
+            named[f"layers.{n}.{name}"] = leaf if rep is None else np.asarray(leaf)[rep]
+    return named
 
 
-def params_to_jax(params: Transformer, cfg: ModelConfig) -> dict:
-    """The port's parameters as a reference-shaped tree of numpy arrays
-    (bfloat16 tensors come out as float32)."""
-
-    def host(t: torch.Tensor) -> np.ndarray:
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-    tree = _unflatten({name: host(p) for name, p in params.named_parameters() if not name.startswith("layers.")})
+def _tree_from_named(named: dict, cfg: ModelConfig) -> dict:
+    """The inverse of ``_named_from_tree``: a reference-shaped tree, body layers stacked."""
+    tree = _unflatten({name: leaf for name, leaf in named.items() if not name.startswith("layers.")})
     groups: dict = {}
-    for layer, (group, key, _) in zip(params.layers, _layer_slots(cfg)):
-        flat = {name: host(p) for name, p in layer.named_parameters()}
+    for n, (group, key, _) in enumerate(_layer_slots(cfg)):
+        prefix = f"layers.{n}."
+        flat = {name[len(prefix):]: leaf for name, leaf in named.items() if name.startswith(prefix)}
         groups.setdefault(group, {}).setdefault(key, []).append(flat)
     if "body" in groups:
         tree["body"] = {
@@ -99,3 +98,65 @@ def params_to_jax(params: Transformer, cfg: ModelConfig) -> dict:
     if "tail" in groups:
         tree["tail"] = {key: _unflatten(reps[0]) for key, reps in groups["tail"].items()}
     return tree
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig, device: str | torch.device = "cuda") -> Transformer:
+    """The reference ``init_params`` tree (numpy leaves) as the port's parameters on ``device``."""
+    model = Transformer(cfg, resolve_device(device))
+    model.load_state_dict({k: _to_tensor(v) for k, v in _named_from_tree(tree, cfg).items()}, strict=True)
+    return model.requires_grad_(False)
+
+
+def params_to_jax(params: Transformer, cfg: ModelConfig) -> dict:
+    """The port's parameters as a reference-shaped tree of numpy arrays
+    (bfloat16 tensors come out as float32)."""
+    return _tree_from_named({name: _host(p) for name, p in params.named_parameters()}, cfg)
+
+
+def reference_ndims(params: Transformer, cfg: ModelConfig) -> list[int]:
+    """Each parameter's rank in the reference's tree, in ``named_parameters``
+    order: a layer of the repeating body is stacked there on a leading axis
+    (one more dimension), a tail layer and the top-level leaves are not.
+    The optimizers decide weight decay by this rank (``optim.adamw``)."""
+    body = {n for n, (group, _, _) in enumerate(_layer_slots(cfg)) if group == "body"}
+    return [
+        p.ndim + (name.startswith("layers.") and int(name.split(".")[1]) in body)
+        for name, p in params.named_parameters()
+    ]
+
+
+def train_state_from_jax(state: dict, cfg: ModelConfig, device: str | torch.device = "cuda") -> dict:
+    """The reference's ``{"params", "opt", "step"}`` train state (numpy leaves)
+    as the port's: the parameters as a ``Transformer`` that requires grad, the
+    optimizer's per-parameter trees (AdamW ``mu``/``nu``, SGD ``velocity``) as
+    lists in ``named_parameters`` order, and the counters as device scalars."""
+    dev = resolve_device(device)
+    params = params_from_jax(state["params"], cfg, dev).requires_grad_(True)
+    names = [name for name, _ in params.named_parameters()]
+    opt: dict = {}
+    for key, val in state["opt"].items():
+        if isinstance(val, dict):
+            named = _named_from_tree(val, cfg)
+            opt[key] = [_to_tensor(named[name]).to(dev) for name in names]
+        else:
+            opt[key] = torch.tensor(np.asarray(val), dtype=torch.int32, device=dev)
+    step = torch.tensor(np.asarray(state["step"]), dtype=torch.int32, device=dev)
+    return {"params": params, "opt": opt, "step": step}
+
+
+def train_state_to_jax(state: dict, cfg: ModelConfig) -> dict:
+    """The port's train state as a reference-shaped tree of numpy arrays
+    (bfloat16 tensors come out as float32)."""
+    names = [name for name, _ in state["params"].named_parameters()]
+    opt = {
+        key: _tree_from_named(dict(zip(names, (_host(t) for t in val), strict=True)), cfg)
+        if isinstance(val, list)
+        else _host(val)
+        for key, val in state["opt"].items()
+    }
+    return {"params": params_to_jax(state["params"], cfg), "opt": opt, "step": _host(state["step"])}

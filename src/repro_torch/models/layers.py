@@ -20,6 +20,8 @@ __all__ = [
     "norm_apply",
     "normal_init_",
     "rmsnorm",
+    "sigmoid",
+    "silu",
 ]
 
 
@@ -64,6 +66,23 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Ten
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + gain.float())).to(x.dtype)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as the reference computes it: ``1 / (1 + exp(-x))``
+    with each of the four operations rounded to x's dtype
+    (``jax/_src/lax/lax.py`` ``logistic_impl``), four kernels where
+    ``torch.sigmoid`` is one.  In bf16 ``torch.sigmoid`` rounds once: the two
+    differ in about a third of bf16 outputs, which made bf16 RWKV part from
+    the reference further than bf16 parts from float32.  Serving only: where
+    exp(-x) overflows, autograd's derivative of this chain is inf * 0, so
+    training through it needs ``logistic``'s own JVP rule, s * (1 - s)."""
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``, rounded as the reference rounds it."""
+    return x * sigmoid(x)
 
 
 class LayerNorm(nn.Module):

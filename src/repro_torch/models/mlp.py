@@ -12,6 +12,11 @@ __all__ = ["MLP", "mlp_apply"]
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    # one kernel each, rounded once in bf16 where ``jax.nn`` rounds step by
+    # step (``layers.silu``, four kernels): in bf16 the MLP's output then
+    # differs from the reference's by an ulp here and there, and the model's
+    # logits part from it by less than bf16 parts from float32
+    # (tests/test_torch_models.py::test_bf16_prefill_parts_from_the_reference_no_further_than_bf16_itself)
     if kind == "silu":
         return torch.nn.functional.silu(x)
     if kind == "gelu":

@@ -1,7 +1,7 @@
 """RWKV6 ("Finch") block for serving: time-mix with data-dependent decay + channel-mix.
 
 The port of ``repro.models.rwkv`` at the parts serving needs (``rwkv_train``
-waits for the training slice).  Three routes for the WKV recurrence:
+waits for a later training slice; ROADMAP.md).  Three routes for the WKV recurrence:
 
 * ``scan``    — the sequential recurrence, one token at a time (the oracle,
   and every decode step);
@@ -25,7 +25,7 @@ from repro_torch.kernels import ops as kops
 # the sequential oracle (and the kernel's plain version): (r, k, v, w, u, s0) -> (y, s_end)
 from repro_torch.kernels.ref import rwkv6_scan_ref as wkv_scan
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import LayerNorm, dense_init_, layernorm, linear, normal_init_
+from repro_torch.models.layers import LayerNorm, dense_init_, layernorm, linear, normal_init_, sigmoid, silu
 
 __all__ = [
     "RWKV",
@@ -189,7 +189,7 @@ def _time_mix(p: RWKV, x, cfg: ModelConfig, last_x, s0, wkv_impl: str, length_ma
     rr = linear(xr, p.wr).reshape(B, T, H, D).float()
     kk = linear(xk, p.wk).reshape(B, T, H, D).float()
     vv = linear(xv, p.wv).reshape(B, T, H, D).float()
-    g = torch.nn.functional.silu(linear(xg, p.wg))
+    g = silu(linear(xg, p.wg))
     dec = p.decay_base + torch.tanh(linear(xw, p.decay_w1)).float() @ p.decay_w2.float()
     # per-token log-decay clamped to >= -4 (w >= e^-4): the bound under which
     # the chunked form and the kernel stay overflow-free for chunks <= 32
@@ -218,7 +218,7 @@ def _channel_mix(p: RWKV, x, last_x):
     xk = x + sx * p.cm_maa_k.to(x.dtype)
     xr = x + sx * p.cm_maa_r.to(x.dtype)
     k = torch.square(torch.relu(linear(xk, p.cm_key)))
-    return torch.sigmoid(linear(xr, p.cm_recept)) * linear(k, p.cm_value), x[:, -1:]
+    return sigmoid(linear(xr, p.cm_recept)) * linear(k, p.cm_value), x[:, -1:]
 
 
 def rwkv_prefill(p: RWKV, x: torch.Tensor, cfg: ModelConfig, lengths: torch.Tensor, wkv_impl: str = "chunked"):

@@ -1,4 +1,4 @@
-"""Decoder-LM assembly for serving: parameters, caches, ``prefill`` and ``decode_step``.
+"""Decoder-LM assembly: parameters, ``forward``/``loss_fn`` for training, caches, ``prefill`` and ``decode_step``.
 
 The port of ``repro.models.transformer`` for attention layers with dense
 MLPs and for RWKV6 layers, under RMSNorm or LayerNorm.  The layer stack is a
@@ -9,6 +9,7 @@ until their slice.
 
 Public entry points:
   init_params / compute_copy            parameters (seeded) and their compute-dtype copy
+  forward / loss_fn                     training (attention layers; RWKV training waits)
   init_cache / prefill / decode_step    serving
 """
 
@@ -18,6 +19,7 @@ import copy
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
@@ -26,7 +28,17 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import dense_init_, embed, make_norm, norm_apply
 from repro_torch.models.mlp import MLP, mlp_apply
 
-__all__ = ["Block", "Transformer", "init_params", "compute_copy", "init_cache", "prefill", "decode_step"]
+__all__ = [
+    "Block",
+    "Transformer",
+    "init_params",
+    "compute_copy",
+    "forward",
+    "loss_fn",
+    "init_cache",
+    "prefill",
+    "decode_step",
+]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -199,6 +211,63 @@ def _ffn_half(layer: Block, h: torch.Tensor, mix: torch.Tensor, cfg: ModelConfig
     if cfg.post_block_norm:
         ffn = _norm(ffn, layer.norm2_post, cfg)
     return h + ffn
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+
+def _train_layer(layer: Block, h: torch.Tensor, cfg: ModelConfig, attn_impl: str) -> torch.Tensor:
+    if layer.spec.kind == "rwkv":
+        raise NotImplementedError("rwkv_train waits for a later training slice of the port")
+    mix = attn_lib.attention_train(layer.mixer, _norm(h, layer.norm1, cfg), cfg, layer.spec.attn_type, impl=attn_impl)
+    return _ffn_half(layer, h, mix, cfg)
+
+
+def forward(
+    params: Transformer, inputs: torch.Tensor, cfg: ModelConfig, attn_impl: str = "blocked"
+) -> tuple[torch.Tensor, dict]:
+    """Training forward: tokens (B, S) -> (logits (B, S, V), {"moe_aux": 0}).
+
+    Computes in ``cfg.compute_dtype`` with every cast inside the graph
+    (``linear`` casts each weight at its use, the embedding lookup and the
+    logits cast too), so gradients reach the parameters in their own dtype.
+    Under ``cfg.remat`` each layer is a ``torch.utils.checkpoint`` region, as
+    the reference checkpoints each layer: its backward keeps one layer's
+    activations at a time.  ``remat_policy="minimal"`` (the reference saves
+    the matmul outputs) recomputes everything too: the values are the same.
+    RWKV layers raise: their training waits for a later slice."""
+    h = _embed_in(params, inputs, cfg)
+    remat = cfg.remat and cfg.remat_policy != "none"
+    for layer in params.layers:
+        if remat:
+            h = checkpoint(_train_layer, layer, h, cfg, attn_impl, use_reentrant=False)
+        else:
+            h = _train_layer(layer, h, cfg, attn_impl)
+    h = _norm(h, params.final_norm, cfg)
+    return _logits(params, h, cfg), {"moe_aux": torch.zeros((), dtype=torch.float32, device=h.device)}
+
+
+def loss_fn(
+    params: Transformer, batch: dict, cfg: ModelConfig, attn_impl: str = "blocked"
+) -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy; batch: {"inputs", "targets", optional "mask"}.
+
+    Returns (loss, {"xent", "moe_aux", "tokens"}): the loss is the *sum* over
+    valid tokens divided by their count (at least 1), plus the MoE auxiliary
+    loss, as the reference defines it (exact under any task allocation)."""
+    logits, metrics = forward(params, batch["inputs"], cfg, attn_impl)
+    targets = batch["targets"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    token_count = torch.clamp(mask.sum(), min=1.0)
+    xent = -(ll * mask).sum() / token_count
+    loss = xent + metrics["moe_aux"]
+    return loss, {"xent": xent, "moe_aux": metrics["moe_aux"], "tokens": token_count}
 
 
 @torch.no_grad()

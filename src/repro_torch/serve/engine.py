@@ -89,7 +89,7 @@ class ServeEngine:
         single-token recurrence.
         ``params``: a ``Transformer`` on ``device`` (default: seeded from ``seed``)."""
         if attn_impl == "blocked":
-            raise ValueError("attn_impl 'blocked' waits for the training slice of the port")
+            raise ValueError("attn_impl 'blocked' is ported for the training slice only; serve with naive/flash/paged")
         if attn_impl not in ("naive", "flash", "paged"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         if wkv_impl not in ("scan", "chunked", "kernel"):

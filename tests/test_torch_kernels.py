@@ -19,6 +19,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref
 from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_ref
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+from repro_torch.kernels.weighted_accum import check_out_aliasing, weighted_accum_cuda, weighted_accum_ref
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -212,7 +213,22 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     r, k, v, w = (torch.rand((1, 16, 1, 16)) for _ in range(4))
     with pytest.raises(ValueError, match="CUDA tensors"):
         rwkv6_scan_cuda(r, k, v, w, torch.rand((1, 16)))
-    assert ops.launch_counts() == {"flash_attention": 0, "paged_attention": 0, "rwkv6_scan": 0}
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        weighted_accum_cuda(torch.ones(4), torch.ones(4), 1.0)
+    assert ops.launch_counts() == {"flash_attention": 0, "paged_attention": 0, "rwkv6_scan": 0, "weighted_accum": 0}
+
+
+def test_weighted_accum_out_may_alias_acc_exactly_and_nothing_else():
+    """The kernel reads g as ``__restrict__`` and writes each element once: out
+    may be acc itself, and may share no other memory with acc or g."""
+    acc, g = torch.zeros(64), torch.zeros(64)
+    check_out_aliasing(acc, g, acc)
+    check_out_aliasing(acc, g, torch.zeros(64))
+    check_out_aliasing(acc[:32], g[:32], acc[:32])
+    check_out_aliasing(acc[:32], g[:32], acc[32:])  # the other half of acc's storage: disjoint
+    for name, out in (("g", g), ("g", g[1:].reshape(63)[:32]), ("acc", acc[1:33])):
+        with pytest.raises(ValueError, match=f"out overlaps {name}"):
+            check_out_aliasing(acc[:32], g[:32], out[:32])
 
 
 # ---------------------------------------------------------------------------
@@ -291,3 +307,52 @@ def test_paged_cuda_int8_matches_plain(cuda, q_dtype):
     want = paged_attention_ref(*args, window=12)
     assert got.dtype == want.dtype == TORCH[q_dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[q_dtype], atol=TOL[q_dtype])
+
+
+# weighted_accum: tests/test_kernels.py's cases, mixed types, smollm-360m's largest gradient
+ACCUM_GPU_CASES = [
+    ((1000,), "float32", "float32"),
+    ((33, 77), "float32", "float32"),
+    ((8, 128), "bfloat16", "bfloat16"),
+    ((5, 3, 7), "float32", "float32"),
+    ((4097,), "float32", "bfloat16"),
+    ((4099,), "bfloat16", "float32"),
+    ((49152, 960), "float32", "float32"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [0.37, 1.0, "device"])
+@pytest.mark.parametrize("shape,acc_dt,g_dt", ACCUM_GPU_CASES)
+def test_weighted_accum_cuda_equals_plain(cuda, shape, acc_dt, g_dt, scale):
+    """Bit for bit: the kernel multiplies and adds in float32 without contraction."""
+    rng = np.random.default_rng(6)
+    acc = _t(rng.standard_normal(shape).astype(np.float32), acc_dt, cuda)
+    g = _t(rng.standard_normal(shape).astype(np.float32), g_dt, cuda)
+    s = torch.full((1,), 0.37, device=cuda) if scale == "device" else scale
+    before = weighted_accum_cuda.launches
+    got = ops.weighted_accum(acc, g, s)
+    torch.cuda.synchronize()
+    assert weighted_accum_cuda.launches == before + 1
+    assert got.dtype == acc.dtype and torch.equal(got, weighted_accum_ref(acc, g, s))
+
+
+@pytest.mark.gpu
+def test_weighted_accum_cuda_offsets_in_place_and_refusals(cuda):
+    base, gb = torch.randn(4099, device=cuda), torch.randn(4099, device=cuda)
+    for a, g in ((base[1:], gb[1:]), (base[1:], gb[:-1]), (base[3:4], gb[3:4])):  # head, scalar path, one element
+        assert torch.equal(ops.weighted_accum(a, g, 0.37), weighted_accum_ref(a, g, 0.37))
+    for dt in (torch.float32, torch.bfloat16):
+        acc, g = torch.randn(4097, device=cuda).to(dt), torch.randn(4097, device=cuda).to(dt)
+        want = acc + g
+        assert ops.weighted_accum(acc, g, 1.0, out=acc) is acc and torch.equal(acc, want)
+    with pytest.raises(ValueError, match="contiguous"):
+        weighted_accum_cuda(torch.ones((4, 4), device=cuda).T, torch.ones((4, 4), device=cuda), 1.0)
+    with pytest.raises(ValueError, match="out overlaps g"):
+        weighted_accum_cuda(base[:8], gb[:8], 1.0, out=gb[:8])
+    with pytest.raises(ValueError, match="out overlaps acc"):
+        weighted_accum_cuda(base[:8], gb[:8], 1.0, out=base[1:9])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        weighted_accum_cuda(torch.ones(4, device=cuda).half(), torch.ones(4, device=cuda).half(), 1.0)
+    with pytest.raises(ValueError, match="scale must be one float32"):
+        weighted_accum_cuda(torch.ones(4, device=cuda), torch.ones(4, device=cuda), torch.ones(2, device=cuda))

@@ -165,7 +165,8 @@ def test_port_imports_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.launch.serve, repro_torch.serve, repro_torch.kernels.ops\n"
-        "import repro_torch.models.convert\n"
+        "import repro_torch.models.convert, repro_torch.launch.train, repro_torch.runtime.driver\n"
+        "import repro_torch.dist.hetero_step, repro_torch.optim, repro_torch.core, repro_torch.data\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
