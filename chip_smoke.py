@@ -12,7 +12,9 @@ nonzero exit and no result line, if anything is wrong:
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    at smollm-360m's serving shapes in bfloat16 and float32 and on the edge
    cases of ``tests/test_kernels.py`` (window, softcap, q_offset, an empty
-   slot, shuffled page tables, int8 pools), each within its stated tolerance.
+   slot, shuffled page tables, int8 pools), each within its stated
+   tolerance; flash also at a 2048-token prompt with smollm's heads, at every
+   head dim 16..256 and on ragged Sq/Sk off its 64-row tiles.
 3. Flash serve: ``ServeEngine(smollm-360m, attn_impl="flash")`` at full width
    and depth with seeded random weights, 8 slots, 16 requests (prompts
    16..256, generations 16..64, closed backlog, max_seq 320).  All requests
@@ -29,7 +31,8 @@ nonzero exit and no result line, if anything is wrong:
    prefill shape (one prompt of 256 tokens, 32 heads of 64, chunk 32, decay
    down to the clamp e^-4, and with every step at it), buckets below the
    chunk (8 and 16 tokens) and a padded tail, each within 3e-4.
-6. RWKV6 serve: ``ServeEngine(rwkv6-1.6b, wkv_impl="kernel")`` at full width
+6. RWKV6 serve: ``ServeEngine(rwkv6-1.6b)`` with the engine's default route
+   (``wkv_impl="kernel"``, checked) at full width
    and depth (1,599,868,928 parameters, seeded random bf16 weights) on the
    same workload; all requests complete, ``rwkv6_scan`` is launched 24 times
    per prefill, and a profile of steady decode ticks gives the device's busy
@@ -45,28 +48,36 @@ nonzero exit and no result line, if anything is wrong:
    smollm-360m's embedding gradient (49152, 960), each at scale 0.37, 1.0
    and a scale read from a device tensor: expected bit-equal, gated at the
    reference's 1e-5; in place at scale 1 it equals the inline sum ``a + g``.
+   Then trees (mixed sizes with 1-element and empty tensors, odd-offset
+   views, mixed dtype groups, a tree larger than one parameter table), new
+   and in place: every tensor bit-equal, one launch per (acc, g) type group
+   and table, every nonempty tensor counted.
 8. Train: ``ElasticTrainer`` (the train CLI's driver) trains smollm-360m at
    full width and depth (random weights from seed 0, seq 2048, micro_bs 1,
    8 microbatches a step over 4 simulated workers v100, rtx2080ti x2,
    gtx1080ti, 2 steps an epoch, 8 steps, ``replace@6:3=v100``, adaptive,
-   while mode).  Every loss is finite, ``weighted_accum`` is launched 290
-   times per microbatch (one per gradient tensor) and no other kernel runs,
+   while mode).  Every loss is finite, ``weighted_accum`` is launched once
+   per microbatch and accumulates 290 tensors each time (the whole gradient
+   tree), and no other kernel runs,
    and the allocation trajectory and membership log equal the same schedule
    at smoke size on the CPU; a profile of one microbatch gives the device's
    busy share of the step.  Then two masked-mode steps from the same start
    (allocation [3, 2, 2, 1], buffers 3 deep): the first step's loss and
    gradient norm match while mode's within ``MASKED_RTOL`` (only the
-   summation order differs).  Then two steps under the CLI's default
+   summation order differs), and each mode launches ``weighted_accum`` once
+   per tree call.  Then two steps under the CLI's default
    measured timing (4 microbatches over 2 ranks, one epoch): finite losses,
    and the controller receives one positive time per rank, summing to the
    steps' wall clock.
 9. Timing: each kernel, its plain version and a library call for the same
-   function (SDPA for flash; ``torch.add(acc, g, alpha=scale)`` for
-   weighted_accum; none for paged or rwkv6_scan): device time from
+   function (SDPA for flash; ``torch._foreach_add_`` over the tree for
+   weighted_accum, with ``torch.add`` per tensor logged beside it; none for
+   paged or rwkv6_scan): device time from
    torch.profiler (``ms``, ``plain_ms``, ``library_ms``) and call time by
    CUDA events (``*call_ms``, host launch overhead included), beside the
    card's bound for the same work (its bytes over the memory rate, or its
    products over the peak rate of the type it works in, named in the row);
+   a ``flash_scaling`` line (kernel, SDPA and bound at a 2048-token prompt);
    one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -114,6 +125,13 @@ FLASH_CASES = [  # tests/test_kernels.py FLASH_CASES: B, Sq, Sk, H, Hkv, Dh, cau
     (1, 8, 128, 4, 2, 64, True, None, 0.0, 120),
     (2, 64, 64, 2, 2, 256, True, None, 0.0, 0),
 ]
+FLASH_WGMMA_CASES = (  # the bf16 route beyond the serve shapes: a 2048-token prompt at smollm's heads,
+    [(1, 2048, 2048, 15, 5, 64, True, None, 0.0, 0)]  # every head dim, ragged Sq/Sk off the 64-row tiles
+    + [(1, 130, 130, 4, 2, dh, True, None, 0.0, 0) for dh in (16, 32, 64, 128, 256)]
+    + [(1, 100, 163, 4, 2, 64, True, None, 0.0, 63), (2, 77, 77, 6, 3, 128, False, 20, 30.0, 0),
+       (1, 37, 101, 4, 1, 32, True, 50, 0.0, 64)]
+)
+FLASH_SCALING = (1, 2048, 15, 5, 64)  # B, S, H, Hkv, Dh: the flash_scaling line's prompt
 RWKV_CASES = [  # tests/test_kernels.py RWKV_CASES: B, T, H, D, chunk, w_min
     (2, 64, 2, 16, 32, 0.5),
     (1, 96, 4, 64, 32, 0.02),
@@ -321,6 +339,12 @@ def phase_kernels(workload_lengths):
             kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
             compare("flash_attention", ops.flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw), dtype,
                     f"test_kernels {case}")
+        for case in FLASH_WGMMA_CASES:
+            B, Sq, Sk, H, Hkv, Dh, causal, window, softcap, qoff = case
+            q, k, v = flash_inputs(B, Sq, Sk, H, Hkv, Dh, dtype, seed=Dh + Sq)
+            kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
+            compare("flash_attention", ops.flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw), dtype,
+                    f"head dims, ragged and long prompts {case}")
         # paged at smollm-360m's decode shapes: 8 slots mid-generation, page size 16
         args = paged_inputs(workload_lengths, 15, 5, 64, 16, 160, 20, dtype, seed=2)
         compare("paged_attention", ops.paged_attention(*args), paged_attention_ref(*args), dtype,
@@ -634,7 +658,8 @@ def phase_rwkv_serve():
         rel32.append(_rel_err(lk, ls))
     del p32, fresh32
 
-    eng = ServeEngine(cfg, params, n_slots=8, max_seq=320, wkv_impl="kernel")
+    eng = ServeEngine(cfg, params, n_slots=8, max_seq=320)  # the engine's default route: the rwkv6_scan kernel
+    check(eng.wkv_impl == "kernel", "an rwkv engine built with defaults prefills through rwkv6_scan")
     del params  # the engine keeps its own compute-dtype copy
     impls = ("kernel", "scan", "chunked")
     for prompt, ls32, rel in zip(prompts, ref32, rel32):
@@ -690,6 +715,7 @@ def phase_accum_kernels():
     main path's shapes (smollm-360m's float32 gradient tensors)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import weighted_accum_ref
+    from repro_torch.kernels.weighted_accum import MAX_TENSORS
 
     f32, bf = torch.float32, torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -742,6 +768,36 @@ def phase_accum_kernels():
         log(phase="accum_kernels", kernel="weighted_accum", case=f"in place, scale 1, {str(adt)[6:]}: acc + g",
             bit_equal=torch.equal(acc, want))
         check(torch.equal(acc, want), "weighted_accum in place at scale 1 equals the inline sum")
+    # trees: one launch per (acc, g) type group of at most MAX_TENSORS tensors, every tensor bit-equal
+    base = rand((70_000,), f32)
+    trees = {
+        "mixed sizes, with 1-element and empty tensors": [
+            (shape, f32, f32) for shape in ((1000,), (1,), (0,), (960,), (33, 77), (2560, 960), (5, 3, 7), (0, 4))],
+        "mixed dtype groups": [((n,), adt, gdt) for n in (4097, 1, 960, 33) for adt in (f32, bf) for gdt in (f32, bf)],
+        "larger than one table": [((1 + i % 37,), f32, f32) for i in range(2 * MAX_TENSORS + 100)],
+    }
+    for label, spec in trees.items():
+        trees[label] = ([rand(sh, adt) for sh, adt, _ in spec], [rand(sh, gdt) for sh, _, gdt in spec])
+    # views at odd element offsets of one buffer: heads, tails and tensors whose addresses never line up
+    views = [(1, 4100), (4103, 4110), (4111, 20_000), (20_003, 20_004), (20_005, 69_999)]
+    trees["odd-offset views"] = ([base[a:b] for a, b in views], [rand((b - a + 3,), f32)[3:] for a, b in views])
+    for label, (accs, grads) in trees.items():
+        groups = {(a.dtype, g.dtype) for a, g in zip(accs, grads) if a.numel()}
+        live = sum(1 for a in accs if a.numel())
+        for scale, in_place in ((0.37, False), (torch.full((1,), 0.37, device="cuda"), True)):
+            want = [weighted_accum_ref(a, gr, scale) for a, gr in zip(accs, grads)]
+            ops.reset_launch_counts()
+            got = ops.weighted_accum_tree(accs, grads, scale, out=accs if in_place else None)
+            torch.cuda.synchronize()
+            launches, tensors = ops.launch_counts()["weighted_accum"], ops.accumulated_tensors()
+            equal = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want))
+            expected = sum(-(-sum(1 for a, g in zip(accs, grads) if a.numel() and (a.dtype, g.dtype) == grp)
+                             // MAX_TENSORS) for grp in groups)
+            log(phase="accum_kernels", kernel="weighted_accum", case=f"tree: {label}", tensors=len(accs),
+                in_place=in_place, bit_equal=equal, launches=launches, expected_launches=expected,
+                tensors_accumulated=tensors, nonempty=live)
+            check(equal, f"weighted_accum tree {label}: every tensor bit-equal to the plain version")
+            check((launches, tensors) == (expected, live), f"weighted_accum tree {label}: launches and tensors")
     return main_err
 
 
@@ -773,15 +829,18 @@ def phase_train():
     for rec in trainer.step_log:
         log(phase="train_step", step=rec["step"], loss=rec["loss"], alloc=rec["alloc"], wall_ms=rec["wall_s"] * 1e3,
             tokens=rec["tokens"], tok_per_s=rec["tokens"] / rec["wall_s"])
+    tensors = ops.accumulated_tensors()
     micro = sum(sum(rec["alloc"]) for rec in trainer.step_log)
     predicted = SMOLLM_TENSORS * micro
     log(phase="train", steps=result["steps"], wall_s=wall, first_loss=result["first_loss"],
-        last_loss=result["last_loss"], microbatches=micro, launches=launches, predicted_weighted_accum=predicted,
+        last_loss=result["last_loss"], microbatches=micro, launches=launches, tensors_accumulated=tensors,
+        predicted_tensors=predicted,
         peak_memory_gb=peak / 1e9, epoch_allocs=[e["alloc"] for e in result["epoch_log"]],
         memberships=result["memberships"], final_allocation=result["final_allocation"])
     check(result["steps"] == TRAIN["steps"] == len(trainer.step_log), "the train run took its 8 steps")
     check(all(np.isfinite(rec["loss"]) for rec in trainer.step_log), "every training loss is finite")
-    check(launches["weighted_accum"] == predicted > 0, f"weighted_accum launches {launches} vs {predicted} predicted")
+    check(launches["weighted_accum"] == micro > 0, f"weighted_accum launches {launches}: one per microbatch ({micro})")
+    check(tensors == predicted, f"weighted_accum accumulated {tensors} tensors, {predicted} predicted (290 a microbatch)")
     check(all(n == 0 for k, n in launches.items() if k != "weighted_accum"), "training launches no other kernel")
     # the same schedule at smoke size on the CPU: simulated timing reads no model, so the trajectory is exact
     small = ElasticTrainer(DriverConfig(**TRAIN, seed=0, device="cpu", smoke=True, seq=16, verbose=False)).run()
@@ -791,7 +850,7 @@ def phase_train():
     check(all(same.values()), "the allocation trajectory and membership log equal the CPU smoke run's")
     _profile_microbatch(trainer)
     del trainer
-    return launches["weighted_accum"], result
+    return {"launches": launches["weighted_accum"], "tensors": tensors}, result
 
 
 def phase_train_measured():
@@ -871,6 +930,7 @@ def phase_train_masked():
     from repro_torch.configs import get_config
     from repro_torch.data import HeteroBatcher, SyntheticLM
     from repro_torch.dist import HeteroStepConfig, build_train_step, init_train_state
+    from repro_torch.kernels import ops
 
     cfg = get_config("smollm-360m")
     S, R, W, C = cfg.max_seq, 4, 3, 8
@@ -881,6 +941,7 @@ def phase_train_masked():
         scfg = HeteroStepConfig(w_max=W, micro_bs=1, seq_len=S, mode=mode)
         state = init_train_state(cfg, scfg, seed=0, device="cuda")
         step = build_train_step(cfg, scfg)
+        ops.reset_launch_counts()
         out = []
         t0 = time.perf_counter()
         for b in batches[:n_steps]:
@@ -889,8 +950,13 @@ def phase_train_masked():
             out.append({key: float(m[key]) for key in ("loss", "grad_norm", "tokens")})
         torch.cuda.synchronize()
         metrics[mode] = out
+        # one launch per tree call: masked mode adds R slots into each of W slot sums, then each sum into the total
+        calls = n_steps * (R * W + W) if mode == "masked" else int(b["alloc"].sum())
+        launches = ops.launch_counts()["weighted_accum"]
         log(phase="train_masked", mode=mode, steps=out, wall_s=time.perf_counter() - t0,
-            microbatches_per_step=R * W if mode == "masked" else int(b["alloc"].sum()))
+            microbatches_per_step=R * W if mode == "masked" else int(b["alloc"].sum()),
+            weighted_accum_launches=launches, tree_calls=calls, tensors_accumulated=ops.accumulated_tensors())
+        check(launches == calls, f"{mode} mode: one weighted_accum launch per tree call")
         del state, step
         torch.cuda.empty_cache()
     gap = {key: abs(metrics["masked"][0][key] - metrics["while"][0][key]) / abs(metrics["while"][0][key])
@@ -902,9 +968,11 @@ def phase_train_masked():
     return gap
 
 
-def accum_timing_row(launches, main_err):
+def accum_timing_row(counts, main_err):
     """The weighted_accum row: one accumulation over smollm-360m's whole float32
-    gradient tree (290 launches) and over the embedding alone."""
+    gradient tree (one launch) and over the embedding alone; the library call
+    is ``torch._foreach_add_`` over the tree (PyTorch's own multi-tensor
+    apply), with ``torch.add`` per tensor logged beside it."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import weighted_accum_ref
@@ -925,33 +993,67 @@ def accum_timing_row(launches, main_err):
         for a, gr in zip(acc, grads):
             weighted_accum_ref(a, gr, one)
 
-    def library():
+    def foreach():
+        torch._foreach_add_(acc, grads, alpha=1.0)
+
+    def per_tensor():
         for a, gr in zip(acc, grads):
             torch.add(a, gr, alpha=1.0)
 
+    ops.reset_launch_counts()
+    tree()
+    check(ops.launch_counts()["weighted_accum"] == 1 and ops.accumulated_tensors() == SMOLLM_TENSORS,
+          "smollm-360m's gradient tree is one launch")
     emb_a, emb_g = acc[0], grads[0]
     check(emb_a.shape == (49152, 960), "the first tensor is the embedding")
     nbytes = 3 * 4 * n  # acc and g read once, out written once, float32
     row = dict(
         name="weighted_accum", route="cuda", source="src/repro_torch/kernels/csrc/weighted_accum.cu",
-        replaces="src/repro/kernels/weighted_accum.py:32", launches=launches, max_abs_err=main_err,
+        replaces="src/repro/kernels/weighted_accum.py:32", launches=counts["launches"],
+        tensors_accumulated=counts["tensors"], max_abs_err=main_err,
         ms=device_ms(tree, "weighted_accum tree", iters=10, warmup=2),
         plain_ms=device_ms(plain, "weighted_accum plain tree", iters=5, warmup=1),
-        library_ms=device_ms(library, "torch.add tree", iters=10, warmup=2),
+        library_ms=device_ms(foreach, "torch._foreach_add_ tree", iters=10, warmup=2),
+        torch_add_ms=device_ms(per_tensor, "torch.add per tensor", iters=10, warmup=2),
         call_ms=time_ms(tree, iters=10, warmup=2),
         plain_call_ms=time_ms(plain, iters=5, warmup=1),
-        library_call_ms=time_ms(library, iters=10, warmup=2),
+        library_call_ms=time_ms(foreach, iters=10, warmup=2),
+        torch_add_call_ms=time_ms(per_tensor, iters=10, warmup=2),
         embed_ms=device_ms(lambda: ops.weighted_accum(emb_a, emb_g, one, out=emb_a), "weighted_accum embedding"),
         embed_plain_ms=device_ms(lambda: weighted_accum_ref(emb_a, emb_g, one), "weighted_accum plain embedding"),
         embed_library_ms=device_ms(lambda: torch.add(emb_a, emb_g, alpha=1.0), "torch.add embedding"),
         embed_bound_ms=3 * 4 * emb_a.numel() / PEAK_BYTES * 1e3,
         flops=2 * n, bytes=nbytes, peak="float32 CUDA cores", peak_flops=PEAK_FP32_FLOPS,
-        shape=f"smollm-360m gradient tree: {SMOLLM_TENSORS} float32 tensors, {n} elements, one launch each; "
+        shape=f"smollm-360m gradient tree: {SMOLLM_TENSORS} float32 tensors, {n} elements, one launch; "
+              "library: torch._foreach_add_ over the tree; torch_add_*: torch.add per tensor; "
               "embed_*: the (49152, 960) embedding alone",
     )
     del acc, grads
     torch.cuda.empty_cache()
     return row
+
+
+def flash_scaling():
+    """The flash kernel at a 2048-token prompt (smollm's heads, bf16, causal),
+    where the causal products, not the bytes, bound the card: kernel and SDPA
+    device time beside the bound."""
+    from repro_torch.kernels import flash_attention as fa
+
+    B, S, H, Hkv, Dh = FLASH_SCALING
+    q, k, v = flash_inputs(B, S, S, H, Hkv, Dh, torch.bfloat16, seed=12)
+    flops = 4 * (B * S * (S + 1) // 2) * H * Dh
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) + q.numel() * q.element_size()
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v), "flash_attention S=2048")
+    lib = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), "sdpa S=2048")
+    bound = max(t_ops, t_bytes)
+    log(phase="flash_scaling", shape=f"B={B} S={S} H={H} Hkv={Hkv} Dh={Dh} bf16 causal", ms=ms, library_ms=lib,
+        call_ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v), iters=50),
+        library_call_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), iters=50),
+        flops=flops, bytes=nbytes, bound_ms=bound, bound_by="operations" if t_ops > t_bytes else "bytes",
+        share_of_bound=bound / ms, vs_library=ms / lib)
 
 
 def phase_timing(main_err, launches, paged_lengths):
@@ -971,6 +1073,8 @@ def phase_timing(main_err, launches, paged_lengths):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows.append(dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        route_detail="bf16: wgmma.mma_async on the tensor cores (S = Q K^T m64n64k16 from shared memory, "
+                     "O += P V with P from registers), cp.async K/V into a two-stage ring",
         replaces="src/repro/kernels/flash_attention.py:124", launches=launches["flash"],
         max_abs_err=main_err["flash_attention"],
         ms=device_ms(lambda: fa.flash_attention_cuda(q, k, v), "flash_attention"),
@@ -982,6 +1086,7 @@ def phase_timing(main_err, launches, paged_lengths):
         flops=flops, bytes=nbytes, peak="bf16 tensor cores", peak_flops=PEAK_BF16_FLOPS,
         shape=f"B={B} S={S} H={H} Hkv={Hkv} Dh={Dh} bf16 causal",
     ))
+    flash_scaling()
     # paged: 8 slots mid-generation of the workload's first 8 requests, page size 16
     args = paged_inputs(paged_lengths, 15, 5, 64, 16, 160, 20, bf, seed=8)
     q, k_pool, v_pool, table, lens = args
@@ -1070,7 +1175,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rwkv_launches = phase_rwkv_serve()
     torch.cuda.empty_cache()
-    accum_launches, _ = phase_train()
+    accum_counts, _ = phase_train()
     torch.cuda.empty_cache()
     phase_train_masked()
     torch.cuda.empty_cache()
@@ -1080,7 +1185,7 @@ def main() -> int:
     rows = phase_timing(
         main_err,
         {"flash": flash_launches["flash_attention"], "paged": paged_launches["paged_attention"],
-         "rwkv": rwkv_launches["rwkv6_scan"], "accum": accum_launches},
+         "rwkv": rwkv_launches["rwkv6_scan"], "accum": accum_counts},
         paged_lengths,
     )
     log(phase="done", seconds=time.perf_counter() - t_start, nvidia_smi=smi)

@@ -42,7 +42,7 @@ _ENTRY = {
         "rwkv6_scan_fwd",
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int64), _P],
     ),
-    "weighted_accum": ("weighted_accum_fwd", [_P, _P, _P, _P, ctypes.c_int64, _I, _I, _P]),
+    "weighted_accum": ("weighted_accum_tree_fwd", [_P, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

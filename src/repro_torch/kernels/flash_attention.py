@@ -1,11 +1,13 @@
 """Flash attention forward: the CUDA kernel's wrapper, beside its plain version.
 
 The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
-``flash_attention`` / ``_flash_kernel`` of ``repro/kernels/flash_attention.py``.
-``flash_attention_cuda`` checks its inputs, allocates the output, launches
-the kernel on the current stream and counts the launch; it takes CUDA
-tensors only.  ``flash_attention_ref`` is the plain PyTorch version of the
-same function.  ``kernels.ops.flash_attention`` picks between them by device.
+``flash_attention`` / ``_flash_kernel`` of ``repro/kernels/flash_attention.py``:
+bfloat16 on the tensor cores (wgmma, P rounded to bf16 before P·V),
+float32 on the CUDA cores.  ``flash_attention_cuda`` checks its inputs,
+allocates the output, launches the kernel on the current stream and counts
+the launch; it takes CUDA tensors only.  ``flash_attention_ref`` is the
+plain PyTorch version of the same function.  ``kernels.ops.flash_attention``
+picks between them by device.
 """
 
 from __future__ import annotations
@@ -50,6 +52,9 @@ def flash_attention_cuda(
         raise ValueError(f"head_dim {Dh} not in the kernel's {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v need a unit stride on the head dim")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]) for t in (q, k, v)):
+        # the bf16 route copies rows 16 bytes at a time
+        raise ValueError("bfloat16 q, k and v need 16-byte aligned rows (data_ptr % 16 == 0, strides % 8 == 0)")
     if window is not None and window < 1:
         raise ValueError("window must be >= 1 (or None)")
     if q_offset < 0:

@@ -20,6 +20,7 @@ __all__ = [
     "rwkv6_scan",
     "weighted_accum",
     "weighted_accum_tree",
+    "accumulated_tensors",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -73,16 +74,22 @@ def weighted_accum(acc, g, scale, out=None):
 
 
 def weighted_accum_tree(acc_tree, g_tree, scale, out=None):
-    """``weighted_accum`` over matching lists of tensors, one launch per
-    tensor; ``out`` is None or a matching list (it may be ``acc_tree``)."""
+    """``weighted_accum`` over matching lists of tensors; ``out`` is None or a
+    matching list (it may be ``acc_tree``).  On the card, one launch per
+    (acc dtype, g dtype) group of the tree."""
     if len(acc_tree) != len(g_tree) or (out is not None and len(out) != len(acc_tree)):
         raise ValueError(f"trees of {len(acc_tree)} and {len(g_tree)} tensors")
     if not acc_tree:
         return []
-    if isinstance(scale, float | int) and _route(acc_tree[0]) == "cuda":
-        scale = _wa.scale_tensor(scale, acc_tree[0].device)  # one fill for the whole tree
+    if _route(acc_tree[0]) == "cuda":
+        return _wa.weighted_accum_tree_cuda(acc_tree, g_tree, scale, out)
     outs = [None] * len(acc_tree) if out is None else out
     return [weighted_accum(a, g, scale, out=o) for a, g, o in zip(acc_tree, g_tree, outs)]
+
+
+def accumulated_tensors() -> int:
+    """Tensors the ``weighted_accum`` kernel accumulated since the last reset."""
+    return _wa.weighted_accum_cuda.tensors
 
 
 def launch_counts() -> dict[str, int]:
@@ -91,5 +98,7 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero every launch counter and the count of accumulated tensors."""
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    _wa.weighted_accum_cuda.tensors = 0

@@ -302,7 +302,7 @@ def prefill(
     lengths: torch.Tensor,
     cfg: ModelConfig,
     attn_impl: str = "naive",
-    wkv_impl: str = "chunked",
+    wkv_impl: str = "kernel",
 ) -> tuple[torch.Tensor, dict]:
     """Batched prompt-parallel prefill: one forward over the whole padded prompt
     writes every layer's cache.
@@ -311,6 +311,9 @@ def prefill(
     cache: a dense per-slot cache from ``init_cache`` (read for its shapes
     and dtypes, not modified).  ``attn_impl`` picks the attention layers'
     route, ``wkv_impl`` ("scan", "chunked" or "kernel") the RWKV layers'.
+    The default "kernel" (``kernels.ops.rwkv6_scan``: the CUDA kernel on the
+    card, the plain sequential scan on the CPU) departs from the reference's
+    "chunked" so that serving on the card runs the kernel.
     Returns (logits at each row's last real token (B, V), a new cache with
     ``index == lengths``)."""
     h = _embed_in(params, tokens, cfg)

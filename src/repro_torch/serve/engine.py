@@ -75,7 +75,7 @@ class ServeEngine:
         temperature: float = 0.0,
         seed: int = 0,
         attn_impl: str = "naive",
-        wkv_impl: str = "chunked",
+        wkv_impl: str = "kernel",
         page_size: int = 8,
         pool_pages: int | None = None,
         device: str | torch.device = "cuda",
@@ -85,8 +85,11 @@ class ServeEngine:
         stays naive) and decodes through the paged kernel.  The default pool
         matches the dense layout's footprint (``n_slots * max_seq`` tokens).
         ``wkv_impl``: the RWKV layers' prefill route, "scan", "chunked" or
-        "kernel" (the CUDA kernel on the card); decode always runs the
-        single-token recurrence.
+        "kernel" (the default: the CUDA kernel on the card, its plain
+        sequential scan on the CPU); decode always runs the single-token
+        recurrence.  The default departs from the reference's "chunked"
+        (``repro/serve/engine.py:79``) so that serving on the card runs the
+        ``rwkv6_scan`` kernel; ``wkv_chunked`` stays a tested route.
         ``params``: a ``Transformer`` on ``device`` (default: seeded from ``seed``)."""
         if attn_impl == "blocked":
             raise ValueError("attn_impl 'blocked' is ported for the training slice only; serve with naive/flash/paged")

@@ -14,9 +14,12 @@ import types
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref
+from repro_torch.kernels import weighted_accum as wa
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda, flash_attention_ref
 from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_ref
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
 from repro_torch.kernels.weighted_accum import check_out_aliasing, weighted_accum_cuda, weighted_accum_ref
@@ -231,6 +234,107 @@ def test_weighted_accum_out_may_alias_acc_exactly_and_nothing_else():
             check_out_aliasing(acc[:32], g[:32], out[:32])
 
 
+# the multi-tensor accumulation: one tensor's (numel, acc code, g code, acc,
+# g and out offsets in elements from their 4 KB-aligned bases, out is acc)
+_TENSOR = st.tuples(st.integers(0, 3000), st.sampled_from([0, 1]), st.sampled_from([0, 1]), st.integers(0, 15),
+                    st.integers(0, 15), st.integers(0, 15), st.booleans())
+
+
+def _addresses(tree):
+    """Addresses of each tensor's acc, g and out, far apart, at the given element offsets."""
+    acc, g, out = [], [], []
+    for i, (n, ac, gc, oa, og, oo, in_place) in enumerate(tree):
+        ea, eg = wa.ELEM_BYTES[ac], wa.ELEM_BYTES[gc]
+        base = (i + 1) << 20
+        acc.append(base + oa * ea)
+        g.append(base + (1 << 18) + og * eg)
+        out.append(acc[-1] if in_place else base + (2 << 18) + oo * ea)
+    return acc, g, out
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.lists(_TENSOR, min_size=1, max_size=24), st.integers(1, 9), st.sampled_from([1, 3, 64, wa.CHUNK_VECS]))
+def test_accum_planner_covers_every_element_exactly_once(tree, max_tensors, chunk_vecs):
+    """Every element of every nonempty tensor is taken by exactly one chunk of
+    one launch, vectors only where acc, g and out are all aligned to them; a
+    launch never mixes types nor holds more than its table; empty tensors
+    are left out; the packed table reads back as planned."""
+    numels = [t[0] for t in tree]
+    acc_codes, g_codes = [t[1] for t in tree], [t[2] for t in tree]
+    acc, g, out = _addresses(tree)
+    launches = wa.plan_tree(numels, acc_codes, g_codes, acc, g, out, max_tensors=max_tensors, chunk_vecs=chunk_vecs)
+    seen = np.concatenate([launch.index for launch in launches]) if launches else np.zeros(0, np.int64)
+    assert sorted(seen.tolist()) == [i for i, n in enumerate(numels) if n > 0]
+    for launch in launches:
+        k = len(launch.index)
+        assert 1 <= k <= max_tensors
+        assert all(acc_codes[i] == launch.acc_code and g_codes[i] == launch.g_code for i in launch.index)
+        table = wa.pack_table(launch, numels, acc, g, out, scale_addr=12345)
+        assert table.nbytes == wa.TABLE_BYTES <= 32764
+        lay = wa.TABLE_LAYOUT
+        assert table[lay["count"] : lay["count"] + 4].view(np.int32)[0] == k
+        assert table[lay["scale"] : lay["scale"] + 8].view(np.int64)[0] == 12345
+        assert np.array_equal(table[lay["n"] : lay["n"] + 8 * k].view(np.int64), np.take(numels, launch.index))
+        assert np.array_equal(table[lay["chunk_start"] :][: 4 * (k + 1)].view(np.int32), launch.chunk_start)
+        width = 16 // wa.ELEM_BYTES[launch.acc_code]
+        cover = {int(i): np.zeros(numels[i], np.int64) for i in launch.index}
+        for c in range(int(launch.chunk_start[-1])):
+            t = int(np.searchsorted(launch.chunk_start, c, side="right")) - 1
+            i, head = int(launch.index[t]), int(launch.head[t])
+            j, last = c - int(launch.chunk_start[t]), c + 1 == launch.chunk_start[t + 1]
+            scalars, vec = wa.chunk_spans(numels[i], head, j, last, width, chunk_vecs)
+            for lo, hi in scalars:
+                cover[i][lo:hi] += 1
+            if vec is not None and vec[1] > vec[0]:
+                cover[i][vec[0] : vec[1]] += 1
+                ea, eg = wa.ELEM_BYTES[launch.acc_code], wa.ELEM_BYTES[launch.g_code]
+                assert (acc[i] // ea + vec[0]) % width == (out[i] // ea + vec[0]) % width == 0
+                assert (g[i] // eg + vec[0]) % width == 0 and (vec[1] - vec[0]) % width == 0
+        assert all(np.all(cv == 1) for cv in cover.values())
+
+
+def test_accum_planner_splits_a_tree_larger_than_one_table():
+    n = wa.MAX_TENSORS * 2 + 5
+    launches = wa.plan_tree([3] * n, [0] * n, [0] * n, [i << 12 for i in range(n)], [(n + i) << 12 for i in range(n)],
+                            [i << 12 for i in range(n)])
+    assert [len(launch.index) for launch in launches] == [wa.MAX_TENSORS, wa.MAX_TENSORS, 5]
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("scale", [0.37, 1.0, "tensor"])
+def test_weighted_accum_tree_plain_equals_per_tensor_ref(in_place, scale):
+    """On the CPU the tree goes through the plain version tensor by tensor:
+    bit-equal to ``weighted_accum_ref`` per tensor, in place included."""
+    rng = np.random.default_rng(8)
+    pairs = [((7,), "float32", "float32"), ((3, 5), "bfloat16", "bfloat16"), ((0,), "float32", "float32"),
+             ((1,), "float32", "bfloat16"), ((4, 33), "bfloat16", "float32"), ((960,), "float32", "float32")]
+    acc = [_t(rng.standard_normal(s).astype(np.float32), adt) for s, adt, _ in pairs]
+    g = [_t(rng.standard_normal(s).astype(np.float32), gdt) for s, _, gdt in pairs]
+    s = torch.full((1,), 0.37) if scale == "tensor" else scale
+    want = [weighted_accum_ref(a, b, s) for a, b in zip(acc, g)]
+    got = ops.weighted_accum_tree(acc, g, s, out=acc if in_place else None)
+    assert all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want))
+    if in_place:
+        assert all(x is a for x, a in zip(got, acc))
+
+
+def test_weighted_accum_tree_aliasing_across_tensors():
+    """In one launch the tensors are taken in no fixed order: an out may alias
+    its own acc exactly, and shares no memory with any other tensor's acc, g or out."""
+    base = torch.zeros(64)
+    a, b, g = base[:16], base[16:32], torch.zeros(16)
+
+    def check(accs, gs, outs):
+        wa._check_tree_aliasing(*(np.array([wa._range(t) for t in ts], np.int64) for ts in (accs, gs, outs)))
+
+    check([a, b], [g, g], [a, b])
+    for accs, gs, outs, match in (([a, b], [g, g], [b, a], "out overlaps acc"),
+                                  ([a, b], [g, g], [a, a], "two out tensors overlap"),
+                                  ([a, b], [g, a], [a, b], "out overlaps g")):
+        with pytest.raises(ValueError, match=match):
+            check(accs, gs, outs)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels vs their plain versions, on the card
 # ---------------------------------------------------------------------------
@@ -266,6 +370,40 @@ def test_flash_cuda_matches_plain(cuda, case, dt):
     want = flash_attention_ref(q, k, v, **kw)
     assert got.dtype == q.dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dt], atol=TOL[dt])
+
+
+# the bf16 route's tiles: every head dim (its swizzle mode follows the row width),
+# ragged Sq/Sk off the 64-row tiles, windows and softcap, a 2048-token prompt at smollm's heads
+FLASH_WGMMA = [(1, 130, 130, 4, 2, dh, True, None, 0.0, 0, 0, 0) for dh in HEAD_DIMS] + [
+    (1, 100, 163, 4, 2, 64, True, None, 0.0, 63, 0, 0),
+    (2, 77, 77, 6, 3, 128, False, 20, 30.0, 0, 0, 0),
+    (1, 37, 101, 4, 1, 32, True, 50, 0.0, 64, 0, 0),
+    (1, 65, 65, 2, 1, 256, False, None, 0.0, 0, 0, 0),
+    (1, 2048, 2048, 15, 5, 64, True, None, 0.0, 0, 0, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_WGMMA)
+def test_flash_cuda_head_dims_ragged_and_long_match_plain(cuda, case, dt):
+    _, _, _, _, _, _, causal, window, softcap, qoff, _, _ = case
+    q, k, v = (_t(x, dt, cuda) for x in _flash_inputs(case, seed=3))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dt], atol=TOL[dt])
+
+
+@pytest.mark.gpu
+def test_flash_cuda_bf16_refuses_rows_off_16_bytes(cuda):
+    q, k, v = (_t(x, "bfloat16", cuda) for x in _flash_inputs((1, 8, 8, 2, 1, 64)))
+    wide = torch.zeros((1, 8, 1, 72), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(q, wide[..., 4:68], v)
 
 
 PAGED_EDGE = [
@@ -356,3 +494,43 @@ def test_weighted_accum_cuda_offsets_in_place_and_refusals(cuda):
         weighted_accum_cuda(torch.ones(4, device=cuda).half(), torch.ones(4, device=cuda).half(), 1.0)
     with pytest.raises(ValueError, match="scale must be one float32"):
         weighted_accum_cuda(torch.ones(4, device=cuda), torch.ones(4, device=cuda), torch.ones(2, device=cuda))
+
+
+def _accum_trees(device):
+    """Named trees of (acc, g) lists: mixed sizes with 1-element and empty
+    tensors, odd-offset views, mixed dtype groups, more tensors than a table."""
+    rng = np.random.default_rng(9)
+
+    def rand(shape, dt):
+        return _t(rng.standard_normal(shape).astype(np.float32), dt, device)
+
+    spec = {
+        "mixed sizes": [(sh, "float32", "float32") for sh in ((1000,), (1,), (0,), (960,), (33, 77), (5, 3, 7), (0, 4))],
+        "mixed dtypes": [((n,), a, g) for n in (4097, 1, 33) for a in TORCH for g in TORCH],
+        "larger than a table": [((1 + i % 13,), "float32", "float32") for i in range(wa.MAX_TENSORS + 20)],
+    }
+    trees = {name: ([rand(sh, a) for sh, a, _ in sp], [rand(sh, g) for sh, _, g in sp]) for name, sp in spec.items()}
+    base = rand((9000,), "float32")
+    views = [(1, 4100), (4103, 4110), (4111, 8000), (8003, 8004)]
+    trees["odd offsets"] = ([base[a:b] for a, b in views], [rand((b - a + 3,), "float32")[3:] for a, b in views])
+    return trees
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("name", ["mixed sizes", "mixed dtypes", "larger than a table", "odd offsets"])
+def test_weighted_accum_cuda_tree_equals_plain(cuda, name, in_place):
+    """One launch per (acc, g) type group and table; every tensor bit-equal to
+    the plain version; the nonempty tensors counted."""
+    accs, grads = _accum_trees(cuda)[name]
+    groups = {}
+    for a, g in zip(accs, grads):
+        if a.numel():
+            groups[a.dtype, g.dtype] = groups.get((a.dtype, g.dtype), 0) + 1
+    want = [weighted_accum_ref(a, g, 0.37) for a, g in zip(accs, grads)]
+    launches, tensors = weighted_accum_cuda.launches, weighted_accum_cuda.tensors
+    got = ops.weighted_accum_tree(accs, grads, torch.full((1,), 0.37, device=cuda), out=accs if in_place else None)
+    torch.cuda.synchronize()
+    assert all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want))
+    assert weighted_accum_cuda.launches - launches == sum(-(-n // wa.MAX_TENSORS) for n in groups.values())
+    assert weighted_accum_cuda.tensors - tensors == sum(groups.values())

@@ -486,6 +486,20 @@ def test_engine_greedy_tokens_match_jax(model, jax_runs, wkv_impl, attn_impl):
         eng.reset()  # leak audit
 
 
+def test_engine_default_route_is_the_kernel_and_matches_jax(model, jax_runs):
+    """The port's serving default is ``wkv_impl="kernel"`` (the reference's is
+    "chunked"): on the CPU it takes the plain scan, and serves the JAX
+    engine's greedy tokens under its "kernel" route."""
+    _, tcfg, _, tp = model
+    eng = ServeEngine(tcfg, tp, n_slots=2, max_seq=32, device="cpu")
+    assert eng.wkv_impl == "kernel"
+    want, jsum, _ = jax_runs["kernel", "naive"]
+    reqs = synthesize(WorkloadConfig(**WORKLOAD))
+    tsum = serve_loop(eng, reqs, SchedulerConfig(max_waiting_prefill=1))
+    assert [r.output for r in reqs] == want
+    assert all(tsum[key] == jsum[key] for key in ("completed", "gen_tokens", "ticks", "prefills"))
+
+
 def test_engine_rejects_an_unknown_wkv_impl(model):
     _, tcfg, _, tp = model
     with pytest.raises(ValueError, match="wkv_impl"):
@@ -494,7 +508,7 @@ def test_engine_rejects_an_unknown_wkv_impl(model):
 
 def test_cli_serves_rwkv6_on_cpu():
     """``--arch rwkv6-1.6b`` runs through the serve CLI as it stands (the
-    engine's default ``wkv_impl``, "chunked")."""
+    engine's default ``wkv_impl``, "kernel": the plain scan on the CPU)."""
     root = Path(__file__).resolve().parents[1]
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH, "--smoke", "--device", "cpu",
