@@ -14,7 +14,9 @@ nonzero exit and no result line, if anything is wrong:
    cases of ``tests/test_kernels.py`` (window, softcap, q_offset, an empty
    slot, shuffled page tables, int8 pools), each within its stated
    tolerance; flash also at a 2048-token prompt with smollm's heads, at every
-   head dim 16..256 and on ragged Sq/Sk off its 64-row tiles.
+   head dim 16..256 and on ragged Sq/Sk off its 64-row tiles.  The paged
+   kernel gives the same bits on repeated calls at the serving shape and at
+   paged_scaling's (below), called at the two shapes in turn.
 3. Flash serve: ``ServeEngine(smollm-360m, attn_impl="flash")`` at full width
    and depth with seeded random weights, 8 slots, 16 requests (prompts
    16..256, generations 16..64, closed backlog, max_seq 320).  All requests
@@ -78,7 +80,12 @@ nonzero exit and no result line, if anything is wrong:
    card's bound for the same work (its bytes over the memory rate, or its
    products over the peak rate of the type it works in, named in the row);
    a ``flash_scaling`` line (kernel, SDPA and bound at a 2048-token prompt);
-   one ``{"kernels": [...]}`` line.
+   a ``paged_scaling`` line (32 slots of 1536..2048 tokens, page 16, P = 128,
+   smollm's heads, bf16: kernel and plain time beside the bytes bound, held
+   against the plain version within 3e-2); a ``rwkv_scan_scaling`` line
+   (the scan's time against T and H, and its time a chunk); one
+   ``{"kernels": [...]}`` line, the paged and rwkv6_scan rows with their
+   grids.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -139,6 +146,9 @@ RWKV_CASES = [  # tests/test_kernels.py RWKV_CASES: B, T, H, D, chunk, w_min
     (1, 64, 1, 128, 32, 0.2),
 ]
 RWKV_SERVE = (1, 256, 32, 64, 32)  # rwkv6-1.6b prefill at the largest bucket: B, T, H, D, chunk
+# the paged_scaling line: 32 slots of 1536..2048 tokens (smollm-360m's 2,048-token context, lengths
+# from this seed), page 16 over 128 page-table slots, smollm's 15/5 heads of 64, bf16
+PAGED_SCALING = dict(slots=32, lengths=(1536, 2048), seed=13, page_size=16, P=128, H=15, Hkv=5, Dh=64)
 PAGED_CASES = [  # tests/test_kernels.py PAGED_CASES: lengths, H, Hkv, window, softcap
     ([10, 3, 0], 4, 2, None, 0.0),
     ([8, 8], 4, 1, None, 0.0),
@@ -366,6 +376,35 @@ def phase_kernels(workload_lengths):
             compare("paged_attention", ops.paged_attention(*int8_args, window=window),
                     paged_attention_ref(*int8_args, window=window), dtype, f"smollm int8 pools window={window}")
     return main_err
+
+
+def paged_scaling_inputs():
+    """The paged_scaling shape's inputs: about 73 MB of live K/V, more than the 50 MB L2."""
+    c = PAGED_SCALING
+    lo, hi = c["lengths"]
+    lengths = np.random.default_rng(c["seed"]).integers(lo, hi + 1, size=c["slots"]).tolist()
+    n_pages = sum(-(-n // c["page_size"]) for n in lengths)
+    return lengths, paged_inputs(lengths, c["H"], c["Hkv"], c["Dh"], c["page_size"], n_pages, c["P"],
+                                 torch.bfloat16, seed=c["seed"])
+
+
+def phase_paged_determinism(workload_lengths):
+    """The paged kernel gives the same bits from call to call (its in-kernel
+    merge runs in split order), at the serving shape and at paged_scaling's;
+    calls at the two shapes in turn leave its ticket buffer zeroed, so the
+    third call equals the first."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    serving = paged_inputs(workload_lengths, 15, 5, 64, 16, 160, 20, torch.bfloat16, seed=2)
+    _, scaling = paged_scaling_inputs()
+    first = {"serving": paged_attention_cuda(*serving), "paged_scaling": paged_attention_cuda(*scaling)}
+    again = {"serving": paged_attention_cuda(*serving), "paged_scaling": paged_attention_cuda(*scaling)}
+    third = {name: paged_attention_cuda(*args) for name, args in (("paged_scaling", scaling), ("serving", serving))}
+    torch.cuda.synchronize()
+    same = {name: torch.equal(first[name], again[name]) and torch.equal(first[name], third[name]) for name in first}
+    log(phase="paged_determinism", calls_per_shape=3, order="serving, scaling, serving, scaling, scaling, serving",
+        bit_identical=same)
+    check(all(same.values()), f"paged_attention repeated calls give the same bits: {same}")
 
 
 def phase_rwkv_kernels():
@@ -1056,6 +1095,41 @@ def flash_scaling():
         share_of_bound=bound / ms, vs_library=ms / lib)
 
 
+def paged_scaling():
+    """The paged kernel where its bytes, not its launch, set the pace: 32 slots
+    of 1536..2048 tokens at smollm's heads in bf16, about 73 MB of live K/V
+    (more than the L2, so back-to-back calls read from HBM); kernel and plain
+    device time beside the bytes bound, checked against the plain version."""
+    from repro_torch.kernels import paged_attention as pa
+
+    c = PAGED_SCALING
+    lengths, args = paged_scaling_inputs()
+    q, k_pool, _, table, lens = args
+    got, want = pa.paged_attention_cuda(*args), pa.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[torch.bfloat16]
+    ok = bool(torch.all((got.float() - want.float()).abs() <= tol + tol * want.float().abs()))
+    check(ok and bool(torch.isfinite(got.float()).all()), "paged_attention at paged_scaling disagrees with plain")
+    live = sum(lengths)
+    flops = 4 * live * c["H"] * c["Dh"]
+    nbytes = 2 * live * c["Hkv"] * c["Dh"] * 2 + 2 * q.numel() * 2 + table.numel() * 4 + lens.numel() * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound = max(t_ops, t_bytes)
+    plan = pa.plan_splits(c["slots"], c["Hkv"], c["H"] // c["Hkv"], c["P"], c["page_size"], c["Dh"],
+                          k_pool.element_size())
+    ms = device_ms(lambda: pa.paged_attention_cuda(*args), "paged_attention paged_scaling")
+    log(phase="paged_scaling", shape=f"B={c['slots']} lengths {min(lengths)}..{max(lengths)} (seed {c['seed']}) "
+        f"page={c['page_size']} P={c['P']} H={c['H']} Hkv={c['Hkv']} Dh={c['Dh']} bf16",
+        grid={"blocks": plan.blocks, "splits": plan.n_splits, "pages_per_split": plan.pages_per_split},
+        live_tokens=live, max_abs_err=err, tol=tol, ms=ms,
+        plain_ms=device_ms(lambda: pa.paged_attention_ref(*args), "paged_attention plain paged_scaling", iters=5,
+                           warmup=1),
+        call_ms=time_ms(lambda: pa.paged_attention_cuda(*args), iters=50),
+        flops=flops, bytes=nbytes, bound_ms=bound, bound_by="operations" if t_ops > t_bytes else "bytes",
+        share_of_bound=bound / ms)
+
+
 def phase_timing(main_err, launches, paged_lengths):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -1087,14 +1161,21 @@ def phase_timing(main_err, launches, paged_lengths):
         shape=f"B={B} S={S} H={H} Hkv={Hkv} Dh={Dh} bf16 causal",
     ))
     flash_scaling()
+    paged_scaling()
     # paged: 8 slots mid-generation of the workload's first 8 requests, page size 16
     args = paged_inputs(paged_lengths, 15, 5, 64, 16, 160, 20, bf, seed=8)
     q, k_pool, v_pool, table, lens = args
     live = sum(paged_lengths)
     flops = 4 * live * 15 * 64
     nbytes = (2 * live * 5 * 64 * 2 + 2 * q.numel() * 2 + table.numel() * 4 + lens.numel() * 4)
+    plan = pa.plan_splits(len(paged_lengths), 5, 3, table.shape[1], 16, 64, k_pool.element_size())
     rows.append(dict(
         name="paged_attention", route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        route_detail="split-KV decode: one block per (slot, kv head, split of "
+                     f"{plan.pages_per_split} pages), its K/V rows by 16-byte cp.async before any math, "
+                     "(head, token) scores and (head, dim pair) P V over all 128 threads; the last block of a "
+                     "(slot, kv head) merges the splits in order (atomic ticket), one launch a call",
+        grid={"blocks": plan.blocks, "splits": plan.n_splits},
         replaces="src/repro/kernels/paged_attention.py:130", launches=launches["paged"],
         max_abs_err=main_err["paged_attention"],
         ms=device_ms(lambda: pa.paged_attention_cuda(*args), "paged_attention"),
@@ -1114,6 +1195,10 @@ def phase_timing(main_err, launches, paged_lengths):
     nbytes = 4 * (4 * r.numel() + u.numel() + r.numel() + B * H * D * D)  # r, k, v, w, u in; y, s_end out
     rows.append(dict(
         name="rwkv6_scan", route="cuda", source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        route_detail="one block of 256 threads per (b, h, 16 value columns) carrying its state slice; the next "
+                     "chunk's tiles prefetched by 16-byte cp.async; the log-decay's cumulative sum by warp "
+                     "shuffles; 4 x 4 score tiles; 3 barriers a chunk; fp32 FMA",
+        grid={"blocks": B * H * D // 16, "chunks_per_block": T // C},
         replaces="src/repro/kernels/rwkv6_scan.py:90", launches=launches["rwkv"],
         max_abs_err=main_err["rwkv6_scan"],
         ms=device_ms(lambda: rw.rwkv6_scan_cuda(r, k, v, w, u, chunk=C), "rwkv6_scan"),
@@ -1131,7 +1216,9 @@ def phase_timing(main_err, launches, paged_lengths):
         a = rwkv_inputs(1, t_len, heads, D, float(np.exp(-4.0)), seed=10, state=False)[:5]
         label = f"T={t_len} H={heads}"
         scaling[label] = device_ms(lambda: rw.rwkv6_scan_cuda(*a, chunk=C), f"rwkv6_scan {label}")
-    log(phase="rwkv_scan_scaling", device_ms=scaling, note="B=1, D=64, chunk 32: T/32 chunks per block, H blocks")
+    log(phase="rwkv_scan_scaling", device_ms=scaling,
+        ms_per_chunk=(scaling["T=256 H=32"] - scaling["T=32 H=32"]) / 7,
+        note="B=1, D=64, chunk 32: T/32 chunks per block, 4 blocks a head; ms_per_chunk from T=32 to T=256")
     rows.append(accum_timing_row(launches["accum"], main_err["weighted_accum"]))
     for r in rows:
         t_ops, t_bytes = r["flops"] / r["peak_flops"] * 1e3, r["bytes"] / PEAK_BYTES * 1e3
@@ -1161,6 +1248,7 @@ def main() -> int:
           "smollm-360m at full width and depth")
     paged_lengths = [int(len(r.prompt) + r.max_gen // 2) for r in _workload(cfg)[:8]]
     main_err = phase_kernels(paged_lengths)
+    phase_paged_determinism(paged_lengths)
     main_err["rwkv6_scan"] = phase_rwkv_kernels()
     main_err["weighted_accum"] = phase_accum_kernels()
 

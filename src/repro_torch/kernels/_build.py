@@ -36,11 +36,11 @@ _ENTRY = {
     ),
     "paged_attention": (
         "paged_attention_fwd",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
     "rwkv6_scan": (
         "rwkv6_scan_fwd",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int64), _P],
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int64), _P],
     ),
     "weighted_accum": ("weighted_accum_tree_fwd", [_P, _I, _I, _P]),
 }

@@ -2,11 +2,17 @@
 
 The kernel (``csrc/rwkv6_scan.cu``) replaces the TPU kernel ``rwkv6_scan`` /
 ``_rwkv6_kernel`` of ``repro/kernels/rwkv6_scan.py``.  ``rwkv6_scan_cuda``
-checks its inputs, allocates the outputs, launches the kernel on the current
-stream and counts the launch; it takes CUDA tensors only.
+checks its inputs, allocates the outputs, launches the kernel once on the
+current stream and counts the launch; it takes CUDA tensors only.
 ``rwkv6_scan_ref`` is the plain PyTorch version of the same function (the
 sequential recurrence).  ``kernels.ops.rwkv6_scan`` picks between them by
 device.
+
+The kernel's grid is one block per (batch, head, block of 16 value columns):
+each block carries its (D, 16) slice of the state through the chunks and
+writes its columns of y and of the end state, with the next chunk's inputs
+copied into shared memory while the current one is computed (16 bytes at a
+time where every row is 16-byte aligned, else 4).
 
 Layout contract (shared with ``models.rwkv``):
   r, k, v, w   (B, T, H, D) float32, unit stride on D    w = per-token decay in (0, 1]
@@ -79,11 +85,14 @@ def rwkv6_scan_cuda(
     if B * H == 0:
         return y, s_end
     strides = (ctypes.c_int64 * 15)(*(s for t in (*seq, y) for s in t.stride()[:3]))
+    # 16-byte copies where every row of every chunk starts on a 16-byte boundary, else 4-byte ones
+    vec16 = all(t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3]) for t in seq)
     lib = _build.library("rwkv6_scan")
     with torch.cuda.device(r.device):
         err = lib.rwkv6_scan_fwd(
             *(t.data_ptr() for t in (r, k, v, w, u)), s0.data_ptr() if s0 is not None else None,
-            y.data_ptr(), s_end.data_ptr(), B, T, H, D, c, strides, torch.cuda.current_stream().cuda_stream,
+            y.data_ptr(), s_end.data_ptr(), B, T, H, D, c, int(vec16), strides,
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: cudaError {err}")

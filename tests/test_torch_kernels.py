@@ -18,9 +18,11 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import weighted_accum as wa
 from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda, flash_attention_ref
 from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_ref
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
 from repro_torch.kernels.weighted_accum import check_out_aliasing, weighted_accum_cuda, weighted_accum_ref
 
@@ -203,6 +205,133 @@ def test_paged_plain_matches_flash_plain_contiguous():
     v = np.concatenate([vp[p] for p in table[0] if p >= 0])[:L]
     ref = ops.flash_attention(_t(q)[:, None], _t(k)[None], _t(v)[None], q_offset=L - 1)
     torch.testing.assert_close(out[0], ref[0, 0], rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the paged kernel's split-KV plan and its merge, plainly
+# ---------------------------------------------------------------------------
+
+
+@settings(max_examples=80, deadline=None)
+@given(P=st.integers(0, 40), page_size=st.sampled_from([4, 8, 16, 128]), dh=st.sampled_from(pa.HEAD_DIMS),
+       kv_bytes=st.sampled_from([1, 2, 4]), B=st.integers(1, 5), Hkv=st.integers(1, 5), G=st.integers(1, 8),
+       lengths=st.lists(st.integers(0, 700), min_size=1, max_size=6),
+       window=st.one_of(st.none(), st.integers(1, 300)))
+def test_paged_split_plan_covers_every_live_page_once(P, page_size, dh, kv_bytes, B, Hkv, G, lengths, window):
+    """The splits cut the page table into runs of ``pages_per_split`` slots;
+    every live page (``_paged_kernel``'s predicate) lies in exactly one live
+    split and every live split holds a live page; a tile of K and V rows fits
+    the staging budget; grid, scratch and tickets follow from the plan."""
+    plan = pa.plan_splits(B, Hkv, G, P, page_size, dh, kv_bytes)
+    pps = plan.pages_per_split
+    assert pps >= 1 and (plan.n_splits - 1) * pps < max(P, 1) <= plan.n_splits * pps
+    assert 1 <= plan.tile_tokens <= min(pps * page_size, 128)  # the kernel stages one token a thread
+    assert 2 * plan.tile_tokens * dh * kv_bytes <= pa.TILE_BYTES
+    assert plan.tile_tokens == pps * page_size or pps == 1  # only a page above the budget is staged in tiles
+    assert plan.blocks == B * Hkv * plan.n_splits
+    assert plan.scratch_floats == plan.blocks * G * (dh + 2) and plan.tickets == B * Hkv
+    for length in lengths:
+        live = [j for j in range(P)
+                if j * page_size < length and (window is None or (j + 1) * page_size > length - window)]
+        splits = pa.live_splits(length, window, P, page_size, pps)
+        assert all(0 <= s < plan.n_splits for s in splits)
+        assert all(sum(s * pps <= j < (s + 1) * pps for s in splits) == 1 for j in live)
+        assert all(any(s * pps <= j < (s + 1) * pps for j in live) for s in splits)
+
+
+def _split_states(q, kp, vp, table, lens, bounds, k_s=None, v_s=None, window=None, softcap=0.0):
+    """Each split's online-softmax state over the logical positions
+    [bounds[i], bounds[i + 1]), plainly: m (S, B, H) with -inf where the split
+    attends nothing, l (S, B, H) and acc (S, B, H, Dh), float32."""
+    B, H, Dh = q.shape
+    n_p1, page_size, Hkv, _ = kp.shape
+    G = H // Hkv
+    pos = torch.arange(table.shape[1] * page_size)
+    pg = table.long()[:, pos // page_size]
+    safe = torch.where(pg < 0, n_p1 - 1, pg)
+    off = (pos % page_size)[None, :]
+    k, v = kp[safe, off].float(), vp[safe, off].float()  # (B, S, Hkv, Dh)
+    if k_s is not None:
+        k, v = k * k_s[safe, off].float()[..., None], v * v_s[safe, off].float()[..., None]
+    s = torch.einsum("bhgd,bshd->bhgs", q.reshape(B, Hkv, G, Dh).float(), k) * Dh**-0.5
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    valid = (pg >= 0) & (pos[None, :] < lens.long()[:, None])
+    if window is not None:
+        valid &= pos[None, :] > lens.long()[:, None] - 1 - window
+    ms, ls, accs = [], [], []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        vm = valid[:, None, None, lo:hi]
+        sv = torch.where(vm, s[..., lo:hi], -torch.inf)
+        m = sv.amax(-1) if hi > lo else torch.full((B, Hkv, G), -torch.inf)
+        p = torch.where(vm, torch.exp(sv - torch.where(torch.isfinite(m), m, 0.0)[..., None]), 0.0)
+        ms.append(m.reshape(B, H))
+        ls.append(p.sum(-1).reshape(B, H))
+        accs.append(torch.einsum("bhgs,bshd->bhgd", p, v[:, lo:hi]).reshape(B, H, Dh))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def _split_bounds(n_tokens, rng, page_size, pps):
+    """Three ways to cut [0, n_tokens): the kernel's runs of pps pages, random
+    cut points (repeats make empty splits), and one split of everything."""
+    cuts = np.sort(rng.integers(0, n_tokens + 1, size=5))
+    return {
+        "kernel": list(range(0, n_tokens, pps * page_size)) + [n_tokens],
+        "random": [0, *cuts.tolist(), n_tokens],
+        "one": [0, n_tokens],
+    }
+
+
+@pytest.mark.parametrize("case", PAGED_CASES + [SMOLLM_PAGED])
+def test_paged_split_merge_matches_ref_and_pallas(pallas, case):
+    """Per-split states merged in split order equal the gather-then-attend
+    version and the Pallas kernel, however the positions are split: the
+    kernel's runs of pages, random cuts with empty splits, one split.  Empty
+    slots give 0."""
+    lengths, H, Hkv, window, softcap = case
+    q, kp, vp, table, lens = _paged_inputs(lengths, H, Hkv, n_pages=16, p_max=10, seed=len(lengths) + 7)
+    kw = dict(window=window, softcap=softcap)
+    want = np.asarray(pallas.paged(*map(pallas.jnp.asarray, (q, kp, vp, table, lens)), interpret=True, **kw))
+    args = tuple(map(_t, (q, kp, vp, table, lens)))
+    ref = paged_attention_ref(*args, **kw)
+    plan = pa.plan_splits(len(lengths), Hkv, H // Hkv, table.shape[1], kp.shape[1], q.shape[-1], 4)
+    rng = np.random.default_rng(len(lengths))
+    for name, bounds in _split_bounds(table.shape[1] * kp.shape[1], rng, kp.shape[1], plan.pages_per_split).items():
+        got = pa.merge_split_states(*_split_states(*args, bounds, **kw))
+        _close(got, want, "float32")
+        torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5, msg=lambda m: f"{name} splits: {m}")
+        assert torch.equal(got[lens == 0], torch.zeros_like(got[lens == 0]))
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+def test_paged_split_merge_int8_matches_pallas(pallas, q_dtype):
+    """int8 pools: the per-split states dequantise with the per-token scales,
+    and the merge equals the Pallas kernel on the same quantised pools."""
+    q, kp, vp, table, lens = _paged_inputs([10, 5, 0], 15, 5, n_pages=8, p_max=4, seed=11)
+    k_i, k_s = _quant_int8(kp)
+    v_i, v_s = _quant_int8(vp)
+    jnp = pallas.jnp
+    want = pallas.paged(
+        jnp.asarray(q, getattr(jnp, q_dtype)), jnp.asarray(k_i), jnp.asarray(v_i), jnp.asarray(table),
+        jnp.asarray(lens), jnp.asarray(k_s, jnp.bfloat16), jnp.asarray(v_s, jnp.bfloat16), interpret=True,
+    )
+    qt = _t(q, q_dtype)
+    for bounds in ([0, 4, 4, 9, 16], [0, 3, 16]):
+        m, l, acc = _split_states(qt, _t(k_i), _t(v_i), _t(table), _t(lens), bounds, _t(k_s, "bfloat16"),
+                                  _t(v_s, "bfloat16"))
+        _close(pa.merge_split_states(m, l, acc).to(TORCH[q_dtype]), want, q_dtype)
+
+
+def test_paged_split_merge_of_empty_splits_is_zero():
+    """Splits that attend nothing (m = -inf or the kernel's finite NEG_INF, l = 0)
+    merge to 0, alone or beside a live split, which they leave unchanged."""
+    m_live, l_live, acc_live = torch.tensor([[1.5]]), torch.tensor([[2.0]]), torch.tensor([[[3.0, -1.0]]])
+    for empty_m in (-torch.inf, NEG_INF):
+        m_e, l_e, acc_e = torch.full((1, 1), empty_m), torch.zeros((1, 1)), torch.zeros((1, 1, 2))
+        assert torch.equal(pa.merge_split_states(m_e[None], l_e[None], acc_e[None]), torch.zeros((1, 1, 2)))
+        got = pa.merge_split_states(torch.stack([m_e, m_live, m_e]), torch.stack([l_e, l_live, l_e]),
+                                    torch.stack([acc_e, acc_live, acc_e]))
+        assert torch.equal(got, acc_live / l_live[..., None])
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -445,6 +574,86 @@ def test_paged_cuda_int8_matches_plain(cuda, q_dtype):
     want = paged_attention_ref(*args, window=12)
     assert got.dtype == want.dtype == TORCH[q_dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[q_dtype], atol=TOL[q_dtype])
+
+
+def _paged_long(dt, dh, device, seed=12):
+    """Slots of about 2048 tokens at smollm's heads over 128 page-table slots
+    of 16 tokens (32 splits of 4 pages), beside a short slot and an empty one."""
+    lengths = [2048, 1999, 1537, 37, 0]
+    q, kp, vp, table, lens = _paged_inputs(lengths, 15, 5, Dh=dh, n_pages=360, page_size=16, p_max=128, seed=seed)
+    return tuple(_t(x, dt, device) for x in (q, kp, vp)) + (_t(table, device=device), _t(lens, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,softcap", [(None, 0.0), (300, 0.0), (None, 30.0)])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_paged_cuda_long_slots_over_many_splits_match_plain(cuda, dt, dh, window, softcap):
+    """2048-token slots: every split of a slot live (or, under a window, the
+    last few), merged inside the launch; one launch."""
+    args = _paged_long(dt, dh, cuda)
+    assert pa.plan_splits(5, 5, 3, 128, 16, dh, 4 if dt == "float32" else 2).n_splits >= 16
+    before = paged_attention_cuda.launches
+    got = ops.paged_attention(*args, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert paged_attention_cuda.launches == before + 1
+    want = paged_attention_ref(*args, window=window, softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dt], atol=TOL[dt])
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_paged_cuda_is_bit_identical_across_calls_and_shapes(cuda, dt):
+    """The in-kernel merge runs in split order, so repeated calls give the same
+    bits; calls at other shapes in between leave the ticket buffer zeroed, so
+    the third call equals the first."""
+    long_args = _paged_long(dt, 64, cuda)
+    q, kp, vp, table, lens = _paged_inputs([37, 16, 0, 5], 15, 5, n_pages=16, page_size=4, p_max=12, seed=13)
+    short_args = tuple(_t(x, dt, cuda) for x in (q, kp, vp)) + (_t(table, device=cuda), _t(lens, device=cuda))
+    first = paged_attention_cuda(*long_args)
+    assert torch.equal(paged_attention_cuda(*long_args), first)
+    short = paged_attention_cuda(*short_args)
+    assert torch.equal(paged_attention_cuda(*long_args, window=100), paged_attention_cuda(*long_args, window=100))
+    assert torch.equal(paged_attention_cuda(*short_args), short)
+    assert torch.equal(paged_attention_cuda(*long_args), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,softcap", [(None, 0.0), (100, 20.0)])
+@pytest.mark.parametrize("dt,int8", [("float32", False), ("bfloat16", False), ("bfloat16", True)])
+def test_paged_cuda_pages_larger_than_a_tile_match_plain(cuda, dt, int8, window, softcap):
+    """Pages of 128 tokens: each split is one page, staged in tiles of at most
+    64 tokens with an online softmax across them, and slots of several pages
+    merge their splits in the launch; int8 pools with their scales too."""
+    q, kp, vp, table, lens = _paged_inputs([300, 129, 64, 0], 15, 5, Dh=64, n_pages=8, page_size=128, p_max=4,
+                                           seed=14)
+    assert pa.plan_splits(4, 5, 3, 4, 128, 64, 1 if int8 else TORCH[dt].itemsize).tile_tokens == 64
+    if int8:
+        (kp, k_s), (vp, v_s) = _quant_int8(kp), _quant_int8(vp)
+        scales = (_t(k_s, "bfloat16", cuda), _t(v_s, "bfloat16", cuda))
+        kp, vp = _t(kp, device=cuda), _t(vp, device=cuda)
+    else:
+        scales = ()
+        kp, vp = _t(kp, dt, cuda), _t(vp, dt, cuda)
+    args = (_t(q, dt, cuda), kp, vp, _t(table, device=cuda), _t(lens, device=cuda), *scales)
+    got = ops.paged_attention(*args, window=window, softcap=softcap)
+    want = paged_attention_ref(*args, window=window, softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dt], atol=TOL[dt])
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+
+
+@pytest.mark.gpu
+def test_paged_cuda_refuses_pools_off_16_bytes(cuda):
+    q, kp, vp, table, lens = (_t(x, "bfloat16", cuda) if x.dtype.kind == "f" else _t(x, device=cuda)
+                              for x in _paged_inputs([7, 3], 4, 2, Dh=64, n_pages=4, page_size=4, p_max=2))
+    flat = torch.zeros(kp.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1 : kp.numel() + 1].view(kp.shape)  # contiguous, 2 bytes off the allocation's alignment
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_attention_cuda(q, shifted, vp, table, lens)
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_attention_cuda(q, kp, shifted, table, lens)
 
 
 # weighted_accum: tests/test_kernels.py's cases, mixed types, smollm-360m's largest gradient

@@ -600,3 +600,44 @@ def test_rwkv6_cuda_reads_strided_inputs(cuda):
     torch.testing.assert_close(y, y_c, rtol=0, atol=0)
     torch.testing.assert_close(s, s_c, rtol=0, atol=0)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [8, 32, 96, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_rwkv6_cuda_every_head_dim_and_length_matches_plain(cuda, D, T):
+    """Blocks of 16 value columns (D / 16 a head) against the plain scan, from
+    one chunk of 8 tokens to eight chunks of 32, decay down to the clamp."""
+    inputs = _scan_inputs(2, T, 3, D, CLAMP, seed=D + T)
+    r, k, v, w, u, s0 = (_t(x, cuda) for x in inputs)
+    y, s = ops.rwkv6_scan(r, k, v, w, u, s0, chunk=32)
+    y_ref, s_ref = rwkv6_scan_ref(r, k, v, w, u, s0)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y, y_ref, rtol=TOL_SCAN, atol=TOL_SCAN)
+    torch.testing.assert_close(s, s_ref, rtol=TOL_SCAN, atol=TOL_SCAN)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_rwkv6_cuda_padded_chunks_leave_the_state_exactly_at_every_head_dim(cuda, D):
+    """Chunks made only of padded steps (k = 0, w = 1) leave every column block's state slice bit for bit."""
+    r, k, v, w, u, s0 = (_t(x, cuda) for x in _scan_inputs(1, 96, 2, D, CLAMP, seed=D, pad_from=32))
+    _, s_full = rwkv6_scan_cuda(r, k, v, w, u, s0, chunk=32)
+    _, s_prompt = rwkv6_scan_cuda(r[:, :32], k[:, :32], v[:, :32], w[:, :32], u, s0, chunk=32)
+    assert torch.equal(s_full, s_prompt)
+
+
+@pytest.mark.gpu
+def test_rwkv6_cuda_reads_rows_off_16_bytes(cuda):
+    """Inputs whose rows start off a 16-byte boundary take the kernel's 4-byte
+    copies: the same result, bit for bit, as the 16-byte copies of contiguous inputs."""
+    wide = [_t(x, cuda) for x in _scan_inputs(2, 64, 3, 65, 0.2, seed=9)]
+    r, k, v, w = (x[..., 1:] for x in wide[:4])  # time stride 3 * 65 floats: rows at odd float offsets
+    u, s0 = wide[4][:, 1:].contiguous(), wide[5][:, :, 1:, 1:].contiguous()
+    assert r.data_ptr() % 16 and r.stride(1) % 4
+    y, s = rwkv6_scan_cuda(r, k, v, w, u, s0, chunk=32)
+    y_c, s_c = rwkv6_scan_cuda(*(x.contiguous() for x in (r, k, v, w)), u, s0, chunk=32)
+    assert torch.equal(y, y_c) and torch.equal(s, s_c)
+    y_ref, s_ref = rwkv6_scan_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y_ref, rtol=TOL_SCAN, atol=TOL_SCAN)
+    torch.testing.assert_close(s, s_ref, rtol=TOL_SCAN, atol=TOL_SCAN)
