@@ -26,8 +26,9 @@ nonzero exit and no result line, if anything is wrong:
    the paged kernel is launched, a decode step matches the dense plain
    decode, a profile of steady decode ticks gives the device's busy share,
    and forced preempt/restores leave the evicted request's tokens unchanged
-   (bf16, evicted before its first decode tick; float32, evicted
-   mid-generation; the bf16 mid-generation case is logged).
+   (bf16, evicted before its first decode tick and mid-generation; float32,
+   evicted mid-generation): the evicted slot's K/V rows travel in the
+   resume token and come back into new pages.
 5. RWKV6 kernel: ``rwkv6_scan`` against its plain version in float32 on the
    ``tests/test_kernels.py`` cases, the state-carry composition, rwkv6-1.6b's
    prefill shape (one prompt of 256 tokens, 32 heads of 64, chunk 32, decay
@@ -86,6 +87,37 @@ nonzero exit and no result line, if anything is wrong:
    (the scan's time against T and H, and its time a chunk); one
    ``{"kernels": [...]}`` line, the paged and rwkv6_scan rows with their
    grids.
+10. Page past the pool (``paged_page_past_pool``): the paged kernel at the
+    serving shape with page-table entries past the pool (ids >= n_pages + 1)
+    gives the same bits as the table naming the scratch page there, and
+    agrees with the plain version within 3e-2 in bf16 (2e-5 in float32).
+11. Trace-driven serve (``serve_trace``): smollm-360m paged at full size
+    over the bundled ``pai_small`` trace (64 requests), 8 slots, with
+    ``obs.ServeObs``.  (a) On the tick clock: every request completes, the
+    paged kernel runs 32 times a tick, and the metrics snapshot (counters
+    and tick-clock histograms) equals the same trace's at smoke size on the
+    CPU.  (b) Again with ``tick_cost`` returning each loop pass's wall
+    seconds (admissions, prefills and the decode tick, which ends on a host
+    read of its tokens) and the trace's arrivals stretched so that they
+    offer ``SERVE_TRACE_LOAD`` (0.7) of the peak decode rate (8 tokens a
+    tick) at (a)'s mean wall tick: the p50/p90/p99 of ``serve.ttft``,
+    ``serve.per_token`` and ``serve.e2e_latency`` in seconds, beside the
+    offered load and the load at (b)'s own mean tick.  The trace is
+    synthetic and toy-length (prompts 4..16, generations 4..24), so these
+    seconds test the loop's timing path; they are no latency figure for
+    the card.  Then the serve CLI once, with no
+    ``--device``, with ``--trace pai_small --trace-out --metrics-out``.
+12. Checkpoint and exact resume (``train_resume``): smollm-360m at full width
+    and depth, seq 512, micro_bs 1, 4 microbatches a step over simulated
+    v100, rtx2080ti x2, gtx1080ti, while mode, 2 steps an epoch, faults
+    ``slow@1:1*3~2,netdeg@3:2~2``.  U: 4 steps uninterrupted (checkpoints
+    every 2 steps, its Perfetto trace and metrics written and parsed); A: 2
+    steps, checkpoint every 2; B: a fresh trainer resumes A's checkpoint and
+    runs to 4.  B's losses at steps 3 and 4, the allocations, fault log,
+    parameters and AdamW moments equal U's bit for bit (on a mismatch U runs
+    again and the first differing step and leaf are logged; the phase fails
+    either way).  Each save and restore is logged with its seconds and
+    bytes; ``weighted_accum`` runs once a microbatch in every run.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -94,8 +126,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -634,15 +669,12 @@ def phase_paged_serve(cfg, params):
     baseline = {r.rid: r.output for r in reqs}
     _profile_ticks(eng, cfg)
 
-    # A restore re-prefills prompt + generated tokens.  Evicted before its first
-    # decode tick, the re-prefill is the original prefill, so the continuation
-    # must be token-identical.  Evicted mid-generation, the generated tokens'
-    # K/V come from a prefill matmul instead of decode matmuls; in bf16 they
-    # round differently, so greedy tokens may part at a near-tie: logged here,
-    # and checked exactly in float32 below.
+    # A restore copies the evicted slot's K/V rows back into new pages, so the
+    # continuation is token-identical wherever the victim was evicted.
     check(_preempt_case(eng, cfg, baseline, "bf16, evicted before its first decode tick", fresh=True),
           "the restored request's tokens equal the run without preemption")
-    _preempt_case(eng, cfg, baseline, "bf16, evicted mid-generation", fresh=False)
+    check(_preempt_case(eng, cfg, baseline, "bf16, evicted mid-generation", fresh=False),
+          "bf16: the request restored mid-generation continues token-identically")
     del eng
     torch.cuda.empty_cache()
 
@@ -1007,6 +1039,249 @@ def phase_train_masked():
     return gap
 
 
+def phase_paged_page_past_pool(workload_lengths):
+    """The paged kernel at the serving shape with page-table entries past the
+    pool: the port follows the reference, which reads such an entry as the
+    scratch page (its gather and its block fetch clamp) and attends it.  Each
+    slot's second page (its first, if it has one page) names an id past the
+    pool; the kernel must give the same bits as the table naming the scratch
+    page there, and agree with the plain version."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    n_pages = 160
+    for dtype in (torch.bfloat16, torch.float32):
+        q, kp, vp, table, lens = paged_inputs(workload_lengths, 15, 5, 64, 16, n_pages, 20, dtype, seed=6)
+        past, scratch = table.clone(), table.clone()
+        rows = torch.arange(table.shape[0], device="cuda")
+        cols = (lens > 16).long()
+        past[rows, cols] = n_pages + 1 + 1000 * rows.int()
+        scratch[rows, cols] = n_pages
+        got = paged_attention_cuda(q, kp, vp, past, lens)
+        same = paged_attention_cuda(q, kp, vp, scratch, lens)
+        want = paged_attention_ref(q, kp, vp, past, lens)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL[dtype]
+        ok = bool(torch.all((got.float() - want.float()).abs() <= tol + tol * want.float().abs()))
+        bit_equal = torch.equal(got, same)
+        log(phase="paged_page_past_pool", dtype=str(dtype).split(".")[1], shape=f"B=8 lengths={workload_lengths} "
+            f"H=15 Hkv=5 Dh=64 page=16 n_pages={n_pages}", past_ids=past[rows, cols].tolist(),
+            bit_equal_to_scratch_table=bit_equal, max_abs_err=err, tol=tol, ok=ok)
+        check(bit_equal, "paged_attention: a page past the pool reads as the scratch page, bit for bit")
+        check(ok and bool(torch.isfinite(got.float()).all()), "paged_attention past the pool vs its plain version")
+
+
+def _trace_run(eng, requests, tick_cost=None):
+    """``requests`` through ``serve_loop`` with a metrics-only ``ServeObs``; returns (summary, snapshot)."""
+    from repro_torch.obs import MetricsRegistry, ServeObs
+    from repro_torch.serve import SchedulerConfig, serve_loop
+
+    obs = ServeObs(metrics=MetricsRegistry())
+    summary = serve_loop(eng, requests, SchedulerConfig(max_waiting_prefill=2), obs=obs, tick_cost=tick_cost)
+    return summary, obs.metrics.snapshot()
+
+
+SERVE_TRACE = dict(n_slots=8, max_seq=40, attn_impl="paged", page_size=8)  # the serve CLI's defaults for pai_small
+# the wall-clock run's offered load: the trace's generated tokens over its arrival window, as a share of the
+# engine's peak decode rate (every slot a token a tick) at the tick-clock run's mean wall tick
+SERVE_TRACE_LOAD = 0.7
+
+
+def phase_serve_trace(cfg, params):
+    """smollm-360m paged over the bundled ``pai_small`` trace: the tick-clock
+    metrics against the CPU smoke run's, then wall-clock latency percentiles,
+    then the serve CLI on the card."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params as init_small
+    from repro_torch.serve import ServeEngine
+    from repro_torch.traces import bundled_trace, to_requests
+
+    trace = bundled_trace("pai_small")
+    gen = sum(t.gen_len for t in trace.tasks)
+    eng = ServeEngine(cfg, params, device=params.embed.device, **SERVE_TRACE)
+    warm = to_requests(trace, vocab_size=cfg.vocab_size, seed=0, limit=4)
+    _trace_run(eng, warm)
+    eng.reset()
+
+    # (a) the tick clock: as on the CPU, whatever the model computes
+    reqs = to_requests(trace, vocab_size=cfg.vocab_size, seed=0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary, snap = _trace_run(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    scfg = smoke_config("smollm-360m", seq=64)
+    small = ServeEngine(scfg, init_small(scfg, seed=0, device="cpu"), device="cpu", **SERVE_TRACE)
+    _, cpu_snap = _trace_run(small, to_requests(trace, vocab_size=scfg.vocab_size, seed=0))
+    counters = snap["counters"]
+    log(phase="serve_trace_ticks", requests=len(reqs), wall_s=wall, ticks=summary["ticks"],
+        wall_s_per_tick=wall / summary["ticks"], tok_per_s=summary["gen_tokens"] / wall, launches=launches,
+        counters=counters, latency_ticks={k.split(".", 1)[1]: {q: h[q] for q in ("p50", "p90", "p99")}
+                                          for k, h in snap["histograms"].items()
+                                          if k in ("serve.ttft", "serve.per_token", "serve.e2e_latency")},
+        equals_cpu_smoke_run=snap == cpu_snap)
+    check(counters["serve.completed"] == len(reqs) == 64 and counters["serve.tokens_out"] == gen,
+          f"serve_trace: completed {counters['serve.completed']} of 64, tokens {counters['serve.tokens_out']} of {gen}")
+    check(snap == cpu_snap, "serve_trace: the tick-clock metrics equal the CPU smoke run's")
+    check(launches["paged_attention"] == cfg.n_layers * summary["ticks"] > 0, "serve_trace: paged kernel launches")
+
+    # (b) the wall clock: each loop pass's seconds, the arrivals stretched to SERVE_TRACE_LOAD of the peak
+    # decode rate that (a) measured
+    eng.reset()
+    tick_s, window = wall / summary["ticks"], max(t.arrival for t in trace.tasks)
+    scale = gen * tick_s / (SERVE_TRACE_LOAD * SERVE_TRACE["n_slots"] * window)
+    reqs = to_requests(trace, vocab_size=cfg.vocab_size, seed=0, time_scale=scale)
+    last, busy = [0.0], [0.0]
+
+    def tick_cost(_engine):
+        now = time.perf_counter()
+        dt, last[0] = now - last[0], now
+        busy[0] += dt
+        return dt
+
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    summary, snap = _trace_run(eng, reqs, tick_cost=tick_cost)
+    lat = {k.split(".", 1)[1]: {q: h[q] for q in ("p50", "p90", "p99")} | {"count": h["count"]}
+           for k, h in snap["histograms"].items() if k in ("serve.ttft", "serve.per_token", "serve.e2e_latency")}
+    # the loop's clock: the ticks' wall seconds, and a jump to the next arrival wherever the engine idles
+    b_tick_s = busy[0] / summary["ticks"]
+    log(phase="serve_trace_latency", unit="seconds", offered_load=SERVE_TRACE_LOAD, tick_s_a=tick_s,
+        trace_time_scale=scale, arrival_window_s=window * scale, clock_s=summary["ticks_elapsed"],
+        busy_s=busy[0], idle_share=1 - busy[0] / summary["ticks_elapsed"], wall_s_per_tick=b_tick_s,
+        load_at_b_tick=gen * b_tick_s / (SERVE_TRACE["n_slots"] * window * scale), ticks=summary["ticks"],
+        latency=lat,
+        note="a synthetic toy-length trace (prompts 4..16, generations 4..24, max_seq 40), not a latency "
+             "figure for the card; ttft: arrival to admission; per_token: (finish - admission) / (tokens - 1); "
+             "e2e: arrival to finish")
+    check(snap["counters"]["serve.completed"] == 64 and all(v["count"] > 0 for v in lat.values()),
+          "serve_trace: the wall-clock run completed and filled its latency histograms")
+    del eng, small
+
+    # the serve CLI on the card (no --device)
+    out = Path(tempfile.mkdtemp(prefix="serve_trace_"))
+    try:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "smollm-360m", "--attn-impl", "paged",
+             "--trace", "pai_small", "--requests", "64", "--slots", "8", "--trace-out", str(out / "trace.json"),
+             "--metrics-out", str(out / "metrics.json")],
+            env={**os.environ, "PYTHONPATH": str(SRC)}, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        check(res.returncode == 0, f"serve CLI on the card exited {res.returncode}: {res.stderr[-2000:]}")
+        result = json.loads(res.stdout)
+        metrics = json.loads((out / "metrics.json").read_text())
+        events = json.loads((out / "trace.json").read_text())["traceEvents"]
+        log(phase="serve_trace_cli", seconds=time.perf_counter() - t0, device=result["device"],
+            completed=result["completed"], gen_tokens=result["gen_tokens"], tok_per_s=result["throughput_tok_per_s"],
+            latency_ticks=result["latency"], trace_events=len(events), schema=metrics["schema"])
+        check(result["device"].startswith("cuda") and result["completed"] == 64 and result["gen_tokens"] == gen,
+              "serve CLI: the trace served on the card")
+        check(metrics["schema"] == "repro.obs.metrics/v1" and metrics["counters"]["serve.completed"] == 64
+              and len(events) > 0, "serve CLI: its trace and metrics files parse")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+# train_resume: full width and depth at seq 512, one slow and one netdeg window
+RESUME = dict(arch="smollm-360m", micro_bs=1, total_micro=4, n_workers=4,
+              hetero_gpus="v100,rtx2080ti,rtx2080ti,gtx1080ti",
+              steps_per_epoch=2, policy="adaptive", mode="while", faults="slow@1:1*3~2,netdeg@3:2~2", seed=0,
+              device="cuda", log_every=1)
+RESUME_SEQ = 512
+
+
+def _state_leaves(trainer):
+    """(name, tensor) of the trainer's parameters, AdamW moments and counters."""
+    state = trainer.state
+    names = [n for n, _ in state["params"].named_parameters()]
+    out = [(f"params.{n}", p) for n, p in state["params"].named_parameters()]
+    for key in ("mu", "nu"):
+        out += [(f"opt.{key}.{n}", t) for n, t in zip(names, state["opt"][key])]
+    return out + [("opt.count", state["opt"]["count"]), ("step", state["step"])]
+
+
+def _first_difference(a, b):
+    """The first step whose loss differs and the first leaf that differs, with its max |diff|."""
+    step = next((i + 1 for i, (x, y) in enumerate(zip(a["losses"], b["losses"])) if x != y), None)
+    for (name, x), (_, y) in zip(a["leaves"], b["leaves"]):
+        if not torch.equal(x, y):
+            return {"step": step, "leaf": name, "max_abs_diff": (x.double() - y.double()).abs().max().item()}
+    return {"step": step, "leaf": None}
+
+
+def phase_train_resume():
+    """Kill and resume at full size, bit for bit against the uninterrupted run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.driver import DriverConfig, ElasticTrainer
+
+    root = Path(tempfile.mkdtemp(prefix="train_resume_"))
+    model_cfg = dataclasses.replace(get_config(RESUME["arch"]), max_seq=RESUME_SEQ)
+
+    def run(name, **kw):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = ElasticTrainer(DriverConfig(**{**RESUME, **kw}), model_cfg=model_cfg)
+        res = tr.run()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        micro = sum(sum(r["alloc"]) for r in tr.step_log)
+        log(phase="train_resume_run", run=name, seconds=time.perf_counter() - t0, steps=res["steps"],
+            losses=tr.losses, allocs=[r["alloc"] for r in tr.step_log], fault_log=res["fault_log"],
+            step_wall_s=[r["wall_s"] for r in tr.step_log], launches=launches, microbatches=micro,
+            io=tr.ckpt_log)
+        check(tr.model_cfg.n_layers == 32 and tr.model_cfg.d_model == 960 and tr.seq_len == RESUME_SEQ,
+              "train_resume: smollm-360m at full width and depth, seq 512")
+        check(launches["weighted_accum"] == micro > 0, f"train_resume {name}: one weighted_accum launch a microbatch")
+        check(all(np.isfinite(x) for x in tr.losses), f"train_resume {name}: finite losses")
+        return tr, res
+
+    try:
+        trace_out, metrics_out = root / "trace.json", root / "metrics.json"
+        u, ures = run("U", steps=4, ckpt_dir=str(root / "u"), ckpt_every=2, trace_out=str(trace_out),
+                      metrics_out=str(metrics_out))
+        shutil.rmtree(root / "u")
+        a, ares = run("A", steps=2, ckpt_dir=str(root / "ab"), ckpt_every=2)
+        io_log = u.ckpt_log + a.ckpt_log
+        del a
+        b, bres = run("B", steps=4, ckpt_dir=str(root / "ab"), ckpt_every=2, resume=True)
+        io_log += b.ckpt_log
+        want = {"losses": u.losses[2:], "leaves": _state_leaves(u)}
+        got = {"losses": b.losses, "leaves": _state_leaves(b)}
+        same = {
+            "losses": got["losses"] == want["losses"],
+            "allocs": [r["alloc"] for r in b.step_log] == [r["alloc"] for r in u.step_log[2:]],
+            "fault_log": ares["fault_log"] + bres["fault_log"] == ures["fault_log"],
+            "final_allocation": bres["final_allocation"] == ures["final_allocation"],
+            "state": all(torch.equal(x, y) for (_, x), (_, y) in zip(got["leaves"], want["leaves"], strict=True)),
+        }
+        metrics = json.loads(metrics_out.read_text())
+        events = json.loads(trace_out.read_text())["traceEvents"]
+        counters = metrics["counters"]
+        log(phase="train_resume", bit_equal=same, u_losses=u.losses, b_losses=b.losses, io=io_log,
+            state_tensors=len(got["leaves"]), metrics_counters=counters, trace_events=len(events))
+        if not all(same.values()):
+            del b
+            u2, _ = run("U again", steps=4)
+            again = {"losses": u2.losses[2:], "leaves": _state_leaves(u2)}
+            log(phase="train_resume_mismatch", resumed_vs_uninterrupted=_first_difference(got, want),
+                uninterrupted_vs_again=_first_difference(again, want),
+                note="a difference between the two uninterrupted runs is the card's own nondeterminism")
+        check(all(same.values()), f"train_resume: the resumed run equals the uninterrupted one bit for bit {same}")
+        check(metrics["schema"] == "repro.obs.metrics/v1" and len(events) > 0, "train_resume: U's files parse")
+        # U: periodic saves at steps 2 and 4, then the terminal one; the slow and netdeg windows
+        check(counters.get("train.checkpoints") == 3 and counters.get("train.fault_windows") == 2,
+              f"train_resume: U's metrics count its checkpoints and fault windows {counters}")
+        check([r["op"] for r in io_log] == ["save"] * 3 + ["save"] * 2 + ["restore"] + ["save"] * 2,
+              f"train_resume: the saves and restores {io_log}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def accum_timing_row(counts, main_err):
     """The weighted_accum row: one accumulation over smollm-360m's whole float32
     gradient tree (one launch) and over the embedding alone; the library call
@@ -1249,6 +1524,7 @@ def main() -> int:
     paged_lengths = [int(len(r.prompt) + r.max_gen // 2) for r in _workload(cfg)[:8]]
     main_err = phase_kernels(paged_lengths)
     phase_paged_determinism(paged_lengths)
+    phase_paged_page_past_pool(paged_lengths)
     main_err["rwkv6_scan"] = phase_rwkv_kernels()
     main_err["weighted_accum"] = phase_accum_kernels()
 
@@ -1259,6 +1535,8 @@ def main() -> int:
     flash_launches = phase_flash_serve(cfg, params)
     torch.cuda.empty_cache()
     paged_launches = phase_paged_serve(cfg, params)
+    torch.cuda.empty_cache()
+    phase_serve_trace(cfg, params)
     del params
     torch.cuda.empty_cache()
     rwkv_launches = phase_rwkv_serve()
@@ -1268,6 +1546,8 @@ def main() -> int:
     phase_train_masked()
     torch.cuda.empty_cache()
     phase_train_measured()
+    torch.cuda.empty_cache()
+    phase_train_resume()
     torch.cuda.empty_cache()
 
     rows = phase_timing(

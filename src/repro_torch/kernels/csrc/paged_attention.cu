@@ -212,8 +212,9 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
     //    first live page) and whether it is attended; a tile holds at most NT tokens
     if (tid < tt) {
       const int pos = t0 + tid;
-      const int pg = t0 == t_first ? pg_first : row[pos / page_size];
-      const bool live = pg >= 0 && pg < n_pages_p1 && pos >= j_lo * page_size;
+      // an entry past the pool names the scratch page (the last) and stays live, as in the reference
+      const int pg = min(t0 == t_first ? pg_first : row[pos / page_size], n_pages_p1 - 1);
+      const bool live = pg >= 0 && pos >= j_lo * page_size;
       src[tid] = live ? ((int64_t)pg * page_size + pos % page_size) * Hkv + hk : -1;
       ok[tid] = live && (window <= 0 || pos > length - 1 - window);  // pos < length holds by pos_hi
     }

@@ -25,7 +25,8 @@ Layout contract (shared with ``models.attention`` and ``serve.paged``):
   q          (B, H, Dh)                           one query token per slot
   k/v pool   (n_pages + 1, page_size, Hkv, Dh)    the LAST page is scratch
   scales     (n_pages + 1, page_size, Hkv) bf16   int8 pools only
-  pages      (B, num_page_slots) int32            -1 = unallocated
+  pages      (B, num_page_slots) int32            -1 = unallocated; an id past the
+                                                  pool names the scratch page
   lengths    (B,) int32                           live tokens per slot (0 = empty)
 The pools start on a 16-byte boundary (the kernel copies 16-byte pieces; a
 row of Dh >= 16 elements is a whole number of them).

@@ -73,7 +73,8 @@ def paged_attention_ref(
     """Gather-then-attend: materialise each slot's logical KV sequence from its
     page table, then run the dense masked softmax.  Slot b's position p lives
     in page ``pages[b, p // page_size]`` at offset ``p % page_size``; it
-    attends positions 0..lengths[b]-1.  int8 pools are dequantised with their
+    attends positions 0..lengths[b]-1; an entry past the pool (>= n_pages + 1)
+    names the scratch page.  int8 pools are dequantised with their
     per-(token, kv-head) scales, and the output is then
     ``result_type(q, bfloat16)``."""
     B, H, Dh = q.shape
@@ -85,7 +86,10 @@ def paged_attention_ref(
         raise ValueError("int8 pools require k_scale/v_scale pools")
     pos = torch.arange(S, device=q.device)
     pg = pages.long()[:, pos // page_size]  # (B, S)
-    safe = torch.where(pg < 0, n_pages_p1 - 1, pg)
+    # an unallocated entry (< 0) reads the scratch page and is masked; an id
+    # past the pool reads the scratch page too and stays live, as in the
+    # reference (its gather and the Pallas kernel's block fetch clamp)
+    safe = torch.where(pg < 0, n_pages_p1 - 1, torch.clamp(pg, max=n_pages_p1 - 1))
     off = (pos % page_size)[None, :].expand(B, S)
     k = k_pool[safe, off].float()  # (B, S, Hkv, Dh)
     v = v_pool[safe, off].float()

@@ -9,16 +9,24 @@ heartbeating at step 8), ``add@16:v100`` (a V100 joins),
 ``replace@24:0=v100`` (slot 0 swapped for a V100).  Every microbatch's
 gradient is accumulated by the ``weighted_accum`` CUDA kernel on the card.
 
-The flags of the parts that wait for later slices are left out:
-checkpoint and resume (``--ckpt-dir``, ``--ckpt-every``, ``--resume``),
-faults (``--faults``, ``--campaign-seed``), trace replay (``--trace``),
-the obs outputs (``--trace-out``, ``--metrics-out``) and the sharded
-multi-process step (``--fsdp``).
+A killed run resumes exactly (same data position, same fleet, same
+allocation) with ``--ckpt-dir`` and ``--resume`` plus the SAME ``--events``
+and ``--faults``.  Degradation faults (``repro_torch.traces.faults``) layer
+on with ``--faults "slow@8:2*3~6,netdeg@20:4~8,outage@30:1+2~5"`` (worker 2
+computes 3x slower for 6 steps; collectives 4x slower for 8; workers 1+2
+fail together and rejoin 5 steps later), or ``--faults random:3`` for a
+seeded 3-fault schedule (``--campaign-seed``).  ``--trace NAME_OR_PATH``
+replays a cluster trace: its machines at t=0 become the fleet and its
+joins/leaves the ``--events`` schedule, mapped onto ``--steps``.
+``--trace-out``/``--metrics-out`` write the Perfetto trace and the metrics
+snapshot (``repro.obs.metrics/v1``).  The sharded multi-process step
+(``--fsdp``) is left out.
 
 Example (on a card; add ``--device cpu`` for the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --smoke \\
       --steps 8 --total-micro 8 --micro-bs 1 --seq 16 --mode while \\
-      --hetero-gpus v100,rtx2080ti,rtx2080ti,gtx1080ti --events "replace@6:3=v100"
+      --hetero-gpus v100,rtx2080ti,rtx2080ti,gtx1080ti --events "replace@6:3=v100" \\
+      --faults "slow@3:1*3~2" --ckpt-dir ck --ckpt-every 2
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import os
 
 from repro_torch.runtime.driver import DriverConfig, ElasticTrainer
 from repro_torch.runtime.elastic import parse_events
+from repro_torch.traces import bundled_trace, faults_spec, load_trace, parse_faults, sample_faults, to_events, to_fleet
 
 
 def parse_args(argv=None):
@@ -53,10 +62,33 @@ def parse_args(argv=None):
     ap.add_argument("--hetero-gpus", default=None, help="comma GPU names for simulated speeds")
     ap.add_argument("--steps-per-epoch", type=int, default=4, help="aggregations per 'epoch' (controller cadence)")
     ap.add_argument("--dataset-size", type=int, default=0, help="samples (0 -> C*micro_bs*steps_per_epoch)")
-    ap.add_argument("--events", default=None, help='membership schedule, e.g. "fail@8:3,add@16:v100,replace@24:0=v100"')
+    ap.add_argument(
+        "--events",
+        default=None,
+        help='membership schedule, e.g. "fail@8:3,add@16:v100,replace@24:0=v100"; '
+        "on --resume pass the SAME schedule (applied events are skipped)",
+    )
+    ap.add_argument(
+        "--faults",
+        default=None,
+        help='fault schedule, e.g. "slow@8:2*3~6,netdeg@20:4~8,outage@30:1+2~5", '
+        'or "random:<n>" to sample n faults seeded by --campaign-seed',
+    )
+    ap.add_argument(
+        "--trace",
+        default=None,
+        help="bundled trace name (e.g. pai_small) or trace json path; derives the "
+        "fleet and membership schedule (conflicts with --hetero-gpus/--events)",
+    )
+    ap.add_argument("--campaign-seed", type=int, default=0, help="seed for --faults random:<n>")
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json-out", default=None)
+    ap.add_argument("--trace-out", default=None, help="write a Perfetto trace-event JSON")
+    ap.add_argument("--metrics-out", default=None, help="write a metrics snapshot JSON (repro.obs.metrics/v1)")
     ap.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.policy == "static" and not args.static_ratio:
@@ -67,6 +99,28 @@ def parse_args(argv=None):
     if args.events:
         try:
             parse_events(args.events)
+        except ValueError as e:
+            ap.error(str(e))
+    if args.trace:
+        if args.hetero_gpus or args.events:
+            ap.error("--trace derives the fleet and membership schedule; it conflicts "
+                     "with --hetero-gpus/--events — drop one side")
+        try:
+            trace = load_trace(args.trace) if os.path.exists(args.trace) else bundled_trace(args.trace)
+            fleet = to_fleet(trace)
+            args.hetero_gpus = ",".join(fleet)
+            args.n_workers = len(fleet)
+            args.events = to_events(trace, args.steps) or None
+        except (ValueError, FileNotFoundError) as e:
+            ap.error(str(e))
+    if args.faults:
+        try:
+            if args.faults.startswith("random:"):
+                n = int(args.faults.split(":", 1)[1])
+                n_workers = len(args.hetero_gpus.split(",")) if args.hetero_gpus else args.n_workers
+                args.faults = faults_spec(sample_faults(n_workers, args.steps, args.campaign_seed, n_faults=n))
+            else:
+                parse_faults(args.faults)
         except ValueError as e:
             ap.error(str(e))
     return args
@@ -90,8 +144,14 @@ def main(argv=None) -> dict:
         steps_per_epoch=args.steps_per_epoch,
         dataset_size=args.dataset_size,
         lr=args.lr,
+        ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every,
+        resume=args.resume,
         seed=args.seed,
         events=args.events,
+        faults=args.faults,
+        trace_out=args.trace_out,
+        metrics_out=args.metrics_out,
         device=args.device,
     )
     result = ElasticTrainer(cfg).run()

@@ -26,6 +26,8 @@ this module imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -33,7 +35,23 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
 
-__all__ = ["params_from_jax", "params_to_jax", "reference_ndims", "train_state_from_jax", "train_state_to_jax"]
+__all__ = [
+    "LeafSpec",
+    "params_from_jax",
+    "params_to_jax",
+    "reference_ndims",
+    "train_state_from_jax",
+    "train_state_spec",
+    "train_state_to_jax",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    """A leaf's shape and numpy dtype, standing in for its array where only those are read."""
+
+    shape: tuple
+    dtype: np.dtype
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict:
@@ -82,8 +100,9 @@ def _named_from_tree(tree: dict, cfg: ModelConfig) -> dict:
     return named
 
 
-def _tree_from_named(named: dict, cfg: ModelConfig) -> dict:
-    """The inverse of ``_named_from_tree``: a reference-shaped tree, body layers stacked."""
+def _tree_from_named(named: dict, cfg: ModelConfig, stack=np.stack) -> dict:
+    """The inverse of ``_named_from_tree``: a reference-shaped tree, body layers
+    stacked by ``stack`` (a list of the repeats' leaves -> one leaf)."""
     tree = _unflatten({name: leaf for name, leaf in named.items() if not name.startswith("layers.")})
     groups: dict = {}
     for n, (group, key, _) in enumerate(_layer_slots(cfg)):
@@ -92,7 +111,7 @@ def _tree_from_named(named: dict, cfg: ModelConfig) -> dict:
         groups.setdefault(group, {}).setdefault(key, []).append(flat)
     if "body" in groups:
         tree["body"] = {
-            key: _unflatten({name: np.stack([f[name] for f in reps]) for name in reps[0]})
+            key: _unflatten({name: stack([f[name] for f in reps]) for name in reps[0]})
             for key, reps in groups["body"].items()
         }
     if "tail" in groups:
@@ -160,3 +179,25 @@ def train_state_to_jax(state: dict, cfg: ModelConfig) -> dict:
         for key, val in state["opt"].items()
     }
     return {"params": params_to_jax(state["params"], cfg), "opt": opt, "step": _host(state["step"])}
+
+
+def _spec(t: torch.Tensor) -> LeafSpec:
+    host = torch.float32 if t.dtype == torch.bfloat16 else t.dtype  # as ``_host`` gives it
+    return LeafSpec(tuple(t.shape), torch.empty((), dtype=host).numpy().dtype)
+
+
+def _stack_specs(specs: list) -> LeafSpec:
+    return LeafSpec((len(specs), *specs[0].shape), specs[0].dtype)
+
+
+def train_state_spec(state: dict, cfg: ModelConfig) -> dict:
+    """``train_state_to_jax``'s tree with a :class:`LeafSpec` for each array:
+    the ``like`` tree of a checkpoint restore, built without copying the
+    state off the device."""
+    names = [name for name, _ in state["params"].named_parameters()]
+
+    def tree(tensors) -> dict:
+        return _tree_from_named({n: _spec(t) for n, t in zip(names, tensors, strict=True)}, cfg, _stack_specs)
+
+    opt = {key: tree(val) if isinstance(val, list) else _spec(val) for key, val in state["opt"].items()}
+    return {"params": tree(state["params"].parameters()), "opt": opt, "step": _spec(state["step"])}

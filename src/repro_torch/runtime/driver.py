@@ -16,12 +16,23 @@ heterogeneous-step loop behind ``python -m repro_torch.launch.train``.
   step + batcher for the new worker count -> continue at the same global
   step.  ``fail`` events go through the ``FailureDetector`` (missed
   heartbeats), as in the reference.
+* **Fault injection.** ``faults="slow@8:2*3~6,netdeg@20:4~8,outage@30:1+2~5"``
+  (``traces.faults.parse_faults``) layers degradation on the membership
+  schedule: ``slow``/``netdeg`` windows scale what the timing source
+  reports, and a correlated ``outage`` takes several workers through the
+  failure detector in one rescale, rejoining them as adds when it heals.
+* **Exact resume.** Checkpoints (``ckpt_dir``, every ``ckpt_every`` steps,
+  before each membership change and at the end) hold the train state in the
+  reference's format (``checkpoint.checkpointer``) with the controller
+  state, the data position, the fleet, the event cursor and the fault
+  windows, so ``resume`` continues the run where it stopped; the guards
+  refuse a resume under another policy, timing mode or data stream.
+* **Observability.** ``trace_out``/``metrics_out`` write the Perfetto trace
+  and the metrics snapshot of ``obs.TrainObs`` on the virtual clock of the
+  modelled aggregation times.
 
 One process holds every rank (the reference's single-device (1, 1) mesh),
-so there is no state to reshard on a rebuild.  Checkpoint and exact resume
-(``ckpt_dir``/``resume``), fault injection (``faults``) and the observability
-outputs (``trace_out``/``metrics_out``) wait for later slices: setting one
-raises ``NotImplementedError``.
+so there is no state to reshard on a rebuild.
 
 Epoch semantics: one "epoch" is one pass over the dataset —
 ``steps_per_epoch`` aggregations by default (``dataset_size`` overrides).
@@ -32,11 +43,14 @@ membership change mid-epoch ends the epoch early.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager, as_train_state
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import (
     AdaptiveAllocationController,
@@ -49,6 +63,9 @@ from repro_torch.core.hetero import normalize_gpu
 from repro_torch.data import HeteroBatcher, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.dist import HeteroStepConfig, build_train_step, init_train_state
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.convert import train_state_spec, train_state_to_jax
+from repro_torch.obs import TrainObs
 from repro_torch.optim import warmup_cosine
 from repro_torch.runtime.elastic import (
     ElasticCoordinator,
@@ -58,6 +75,7 @@ from repro_torch.runtime.elastic import (
     validate_schedule,
 )
 from repro_torch.runtime.monitor import MeasuredTimingSource, SimulatedTimingSource, StragglerMonitor
+from repro_torch.traces.faults import FaultEvent, FaultInjector, FaultyTimingSource, parse_faults
 
 __all__ = ["DriverConfig", "ElasticTrainer"]
 
@@ -66,14 +84,15 @@ __all__ = ["DriverConfig", "ElasticTrainer"]
 # the wall clock and reports t_c=0.
 _T_C_SIM = 0.1
 
-# options of the reference's driver that a later slice of the port brings
-_LATER = {
-    "ckpt_dir": "checkpoint and exact resume",
-    "resume": "checkpoint and exact resume",
-    "faults": "fault injection",
-    "trace_out": "the observability outputs",
-    "metrics_out": "the observability outputs",
-}
+
+def ring_allreduce_bytes(payload_bytes: int, n_workers: int) -> int:
+    """Bytes one worker sends per ring allreduce of a ``payload_bytes`` tree
+    (``repro.dist.collectives.ring_allreduce_bytes``): the bandwidth-optimal
+    ring moves ``2 * (n-1)/n`` of the payload through each link.  The obs
+    layer reports it as ``train.collective_bytes``."""
+    if n_workers <= 1:
+        return 0
+    return int(2 * (n_workers - 1) * payload_bytes // n_workers)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,15 +115,16 @@ class DriverConfig:
     dataset_size: int = 0  # 0 -> total_micro * micro_bs * steps_per_epoch
     lr: float = 3e-4
     ckpt_dir: str | None = None
+    ckpt_every: int = 20
     resume: bool = False
     seed: int = 0
     events: str | None = None  # scripted membership schedule
-    faults: str | None = None
+    faults: str | None = None  # scripted fault schedule (slow/netdeg/outage + membership)
     heartbeat_patience: int = 3
     log_every: int = 10
     verbose: bool = True
-    trace_out: str | None = None
-    metrics_out: str | None = None
+    trace_out: str | None = None  # Perfetto trace-event JSON path
+    metrics_out: str | None = None  # metrics snapshot JSON path
     device: str = "cuda"
 
 
@@ -113,9 +133,14 @@ class ElasticTrainer:
 
     ``state``: a train state to start from (``dist.init_train_state``'s
     layout, e.g. ``models.convert.train_state_from_jax`` of the reference's)
-    instead of the seeded one; it is trained in place."""
+    instead of the seeded one; it is trained in place.  ``model_cfg``: the
+    model's configuration instead of ``cfg.arch``'s (e.g. a shorter
+    ``max_seq``, the sequence length outside smoke runs).  With ``cfg.resume``
+    the constructor restores the latest checkpoint instead, including its
+    membership, which wins over ``cfg.n_workers`` if events had reshaped the
+    fleet before the restart."""
 
-    def __init__(self, cfg: DriverConfig, state: dict | None = None) -> None:
+    def __init__(self, cfg: DriverConfig, state: dict | None = None, model_cfg: ModelConfig | None = None) -> None:
         if cfg.policy not in ("adaptive", "equal", "static"):
             raise ValueError(f"policy must be adaptive/equal/static, got {cfg.policy!r}")
         if cfg.policy == "static" and not cfg.static_ratio:
@@ -125,22 +150,26 @@ class ElasticTrainer:
                 "heartbeat_patience must be >= 1 — with zero patience the failure "
                 "detector never declares anyone dead and fail events become silent no-ops"
             )
-        for name, what in _LATER.items():
-            if getattr(cfg, name):
-                raise NotImplementedError(f"{name}: {what} waits for a later slice of the port")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        self.model_cfg = smoke_config(cfg.arch, seq=cfg.seq) if cfg.smoke else get_config(cfg.arch)
+        self.model_cfg = model_cfg or (smoke_config(cfg.arch, seq=cfg.seq) if cfg.smoke else get_config(cfg.arch))
         self.C = cfg.total_micro
         self.seq_len = cfg.seq if cfg.smoke else self.model_cfg.max_seq
         self.simulated = cfg.hetero_gpus is not None
 
-        self.events: list = validate_schedule(parse_events(cfg.events) if cfg.events else [])
+        scripted: list = parse_events(cfg.events) if cfg.events else []
+        if cfg.faults:
+            scripted = scripted + parse_faults(cfg.faults)
+        # one validated schedule: a --faults step colliding with an --events
+        # step is exactly as order-dependent as two --events terms colliding
+        self.events: list = validate_schedule(scripted)
+        self._schedule_specs = [e.spec() for e in self.events]  # static schedule (fingerprint)
         self._event_idx = 0
 
         # -- initial membership ------------------------------------------------
         gpus = (cfg.hetero_gpus or ",".join(["rtx2080ti"] * cfg.n_workers)).split(",")
         self.gpus = [normalize_gpu(g) for g in gpus]
+        self.gpus0 = list(self.gpus)  # the job's initial fleet (resume fingerprint)
         if cfg.hetero_gpus is not None and len(self.gpus) != cfg.n_workers:
             raise ValueError(
                 f"hetero_gpus lists {len(self.gpus)} workers but n_workers={cfg.n_workers}; "
@@ -176,8 +205,19 @@ class ElasticTrainer:
         self.straggler_flags = 0
         self.straggler_log: list[dict] = []
         self.fd = FailureDetector(len(self.gpus), patience=cfg.heartbeat_patience)
+        self.injector = FaultInjector(len(self.gpus)) if cfg.faults else None
+        self.fault_log: list[dict] = []
+        self.ckpt_log: list[dict] = []  # per save and restore: op, step, seconds, bytes
+
+        # -- checkpointing / resume -------------------------------------------
+        self.mgr = CheckpointManager(cfg.ckpt_dir, save_every=cfg.ckpt_every) if cfg.ckpt_dir else None
         like_scfg = HeteroStepConfig(w_max=1, micro_bs=cfg.micro_bs, seq_len=self.seq_len, optimizer="adamw")
         self.state = state or init_train_state(self.model_cfg, like_scfg, cfg.seed, device=self.device)
+        # observability: virtual-clock spans/metrics, no-op unless requested
+        self.obs = TrainObs(cfg.trace_out, cfg.metrics_out)
+        self._param_bytes = sum(p.numel() * p.element_size() for p in self.state["params"].parameters())
+        if self.mgr and cfg.resume and self.mgr.latest_step() is not None:
+            self._restore()
         self._build()
 
     # -- membership-dependent construction ------------------------------------
@@ -208,7 +248,129 @@ class ElasticTrainer:
             self.timing = SimulatedTimingSource(ClusterSpec.from_gpus(self.gpus, seed=self.cfg.seed))
         else:
             self.timing = MeasuredTimingSource(n)
+        # a fresh measured source covers steps from the current data position
+        # on; _finish_epoch must not take a from-mid-epoch accumulation
+        # (after a resume) for a whole epoch's measurement
+        self._timing_from_agg = self.agg_index
+        if self.injector is not None:
+            # fault windows perturb what the controller measures, whatever the
+            # inner source is: injected stragglers ride the real path
+            self.timing = FaultyTimingSource(self.timing, self.injector, lambda: self.step_i)
         self.straggler = StragglerMonitor(n)
+
+    # -- checkpoints ---------------------------------------------------------------
+
+    def _metadata(self) -> dict:
+        meta = {
+            "controller": self.ctl.state_dict(),
+            "epoch": self.epoch,
+            "agg_index": self.agg_index,
+            "gpus": list(self.gpus),
+            "alloc": np.asarray(self.alloc).tolist(),
+            "events_applied": self._event_idx,
+            "policy": self.cfg.policy,
+            "timing": "simulated" if self.simulated else "measured",
+            "data": self._data_fingerprint(),
+        }
+        if self.injector is not None:
+            # the live schedule (static + the recovery adds an outage
+            # scheduled) and the open fault windows: the event cursor indexes
+            # into this schedule, not the static one
+            meta["faults"] = {
+                "injector": self.injector.state_dict(),
+                "schedule": [e.spec() for e in self.events],
+            }
+        return meta
+
+    def _data_fingerprint(self) -> dict:
+        """What defines the run a checkpoint's position points into: the data
+        stream, the initial fleet (the current one drifts with events) and the
+        event schedule (the saved cursor indexes into it)."""
+        return {
+            "seed": self.cfg.seed,
+            "dataset_size": len(self.dataset),
+            "total_micro": self.C,
+            "micro_bs": self.cfg.micro_bs,
+            "seq_len": self.seq_len,
+            "gpus0": list(self.gpus0),
+            "events": list(self._schedule_specs),
+        }
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _log_io(self, op: str, t0: float) -> None:
+        path = self.mgr._step_dir(self.step_i)
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        self.ckpt_log.append({"op": op, "step": self.step_i, "seconds": time.perf_counter() - t0, "bytes": size})
+
+    def _save(self) -> None:
+        self._sync()
+        t0 = time.perf_counter()
+        self.mgr.save(self.step_i, train_state_to_jax(self.state, self.model_cfg), metadata=self._metadata())
+        self._log_io("save", t0)
+        self.obs.on_checkpoint(self.step_i)
+
+    def _restore(self) -> None:
+        t0 = time.perf_counter()
+        like = train_state_spec(self.state, self.model_cfg)
+        opt_dtypes = {k: [t.dtype for t in v] for k, v in self.state["opt"].items() if isinstance(v, list)}
+        self.step_i, tree, meta = self.mgr.restore(like)
+        self.state = None  # the live state leaves the device before the restored one arrives
+        self.state = as_train_state(tree, self.model_cfg, self.device, opt_dtypes)
+        self._sync()
+        self._log_io("restore", t0)
+        ctl_state = meta["controller"]
+        if isinstance(ctl_state, str):  # the reference's early checkpoints json.dumps'd it
+            ctl_state = json.loads(ctl_state)
+        self.ctl = AdaptiveAllocationController.from_state_dict(ctl_state)
+        ckpt_policy = meta.get("policy", self.cfg.policy)
+        if ckpt_policy != self.cfg.policy:
+            raise ValueError(
+                f"checkpoint was written under policy={ckpt_policy!r} but this run asks "
+                f"for policy={self.cfg.policy!r}; resuming would train on an allocation "
+                "the flags never requested — restart without --resume to switch policy"
+            )
+        this_timing = "simulated" if self.simulated else "measured"
+        ckpt_timing = meta.get("timing", this_timing)
+        if ckpt_timing != this_timing:
+            raise ValueError(
+                f"checkpoint was written under {ckpt_timing} timing but this run uses "
+                f"{this_timing} (--hetero-gpus changed?); the restored controller log "
+                "carries the other mode's speed units — resume with the original flags"
+            )
+        this_data = self._data_fingerprint()
+        ckpt_data = meta.get("data", this_data)
+        if ckpt_data != this_data:
+            diff = {k: (v, this_data[k]) for k, v in ckpt_data.items() if this_data.get(k) != v}
+            raise ValueError(
+                f"checkpoint's data stream does not match this run's flags: "
+                f"{{field: (checkpoint, now)}} = {diff}; the restored epoch/aggregation "
+                "position (and event cursor) would point into a different run — resume "
+                "with the original seed/dataset/batch/fleet/--events flags"
+            )
+        self.epoch = int(meta.get("epoch", 0))
+        self.agg_index = int(meta.get("agg_index", 0))
+        self.gpus = list(meta.get("gpus", self.gpus))
+        self.alloc = np.asarray(meta.get("alloc", self.ctl.allocation), dtype=np.int64)
+        self._event_idx = int(meta.get("events_applied", 0))
+        if self.injector is not None and "faults" in meta:
+            # the saved schedule may carry recovery adds the static --faults
+            # string does not; the cursor indexes into it
+            self.injector = FaultInjector.from_state_dict(meta["faults"]["injector"])
+            sched = ",".join(meta["faults"]["schedule"])
+            self.events = parse_faults(sched) if sched else []
+        if self._event_idx > len(self.events):
+            raise ValueError(
+                f"checkpoint had {self._event_idx} events applied but --events "
+                f"lists only {len(self.events)}; resume with the original schedule"
+            )
+        self.fd = FailureDetector(len(self.gpus), patience=self.cfg.heartbeat_patience)
+        self._log(
+            f"[resume] step {self.step_i}, epoch {self.epoch} agg {self.agg_index}, "
+            f"fleet {self.gpus}, allocation {np.asarray(self.alloc).tolist()}"
+        )
 
     # -- membership events -------------------------------------------------------
 
@@ -230,25 +392,51 @@ class ElasticTrainer:
             return ClusterSpec.from_gpus([gpu]).workers[0].throughput
         return None
 
-    def _apply_event(self, ev: MembershipEvent) -> None:
+    def _apply_event(self, ev: MembershipEvent | FaultEvent) -> None:
+        if ev.kind in ("slow", "netdeg"):
+            # timing faults perturb measurements, not membership: no barrier
+            # checkpoint, no early epoch boundary, no rebuild
+            self.injector.apply(ev)
+            self.fault_log.append({"step": self.step_i, "fault": ev.spec()})
+            self.obs.on_fault(self.step_i, ev.spec(), getattr(ev, "duration", None))
+            self._log(f"[fault] step {self.step_i}: {ev.spec()} active")
+            return
+
         n = len(self.gpus)
+        victims = sorted(getattr(ev, "workers", ()))
         if ev.kind in ("fail", "replace") and not (0 <= ev.index < n):
             raise ValueError(f"event {ev}: worker index out of range for membership size {n}")
-        if ev.kind == "fail" and n == 1:
+        if ev.kind == "outage" and (not victims or victims[-1] >= n):
+            raise ValueError(f"event {ev}: outage workers {victims} out of range for membership size {n}")
+        if (ev.kind == "fail" and n == 1) or (ev.kind == "outage" and len(victims) >= n):
             raise ValueError(f"event {ev}: cannot fail the last remaining worker — the fleet would be empty")
 
+        # barrier checkpoint with the pre-event metadata: a crash during the
+        # rebuild resumes just before the event and applies it again
+        if self.mgr:
+            self._save()
+        if ev.kind == "outage":
+            # an outage is both a membership change and a fault window
+            self.obs.on_fault(self.step_i, ev.spec(), getattr(ev, "duration", None))
+
         coord = ElasticCoordinator(self.ctl)
-        if ev.kind == "fail":
-            # through the detector: the worker stops heartbeating and is
-            # declared dead after `patience` missed intervals
+        if ev.kind in ("fail", "outage"):
+            # through the detector: the silent workers stop heartbeating and
+            # are declared dead after `patience` missed intervals; an outage
+            # is the correlated case, one rescale for the whole group
+            silent = set(victims or [ev.index])
             dead: list[int] = []
             for _ in range(self.fd.patience):
                 for w in range(self.fd.n_workers):
-                    if w != ev.index and self.fd.alive[w]:
+                    if w not in silent and self.fd.alive[w]:
                         self.fd.heartbeat(w)
                 dead = self.fd.tick() or dead
             plan = coord.remove(dead, restore_step=self.step_i)
             new_gpus = [self.gpus[i] for i in plan.survivors]
+            if ev.kind == "outage" and ev.duration is not None:
+                # the outage heals: victims rejoin as adds with their own GPU
+                # types, `duration` steps out
+                self._schedule_recovery([self.gpus[i] for i in sorted(silent)], self.step_i + ev.duration)
         elif ev.kind == "add":
             plan = coord.add(1, est_speed=self._est_speed(ev.gpu))
             new_gpus = self.gpus + [ev.gpu]
@@ -258,6 +446,9 @@ class ElasticTrainer:
             new_gpus[ev.index] = ev.gpu
 
         self.fd.rescale(plan.survivors, plan.n_new)
+        if self.injector is not None:
+            # slow windows are slot-indexed like the detector's miss counts
+            self.injector.rescale(plan.survivors, plan.n_new)
         if ev.kind == "replace":
             self.fd.heartbeat(ev.index)  # fresh card in that slot: clean miss count
         self.gpus = new_gpus
@@ -269,15 +460,19 @@ class ElasticTrainer:
             # mid-epoch: the remaining partition belongs to the old membership
             self.epoch += 1
             self.agg_index = 0
+        detail: dict = {"index": ev.index, "gpu": ev.gpu}
+        if victims:
+            detail["workers"] = victims
         self.membership_log.append(
             {
                 "step": self.step_i,
                 "event": f"{ev.kind}@{ev.step}",
-                "detail": {"index": ev.index, "gpu": ev.gpu},
+                "detail": detail,
                 "gpus": list(self.gpus),
                 "allocation": self.alloc.tolist(),
             }
         )
+        self.obs.on_membership(self.step_i, f"{ev.kind}@{ev.step}", self.gpus, self.alloc)
         self._log(f"[elastic] step {self.step_i}: {ev.kind} -> fleet {self.gpus}, allocation {self.alloc.tolist()}")
         if len(self.gpus) == n and int(np.max(self.alloc)) <= self.w_max:
             # same worker count and the allocation fits the buffers: the step
@@ -285,6 +480,24 @@ class ElasticTrainer:
             self._rebuild_monitoring()
         else:
             self._build()
+
+    def _schedule_recovery(self, gpus: list[str], at_step: int) -> None:
+        """Insert dynamic ``add`` events for healed outage victims, each on its
+        own free step (the validated schedule owns every step), keeping the
+        applied prefix of ``self.events`` untouched."""
+        used = {e.step for e in self.events}
+        step = max(at_step, self.step_i + 1)
+        for gpu in gpus:
+            while step in used:
+                step += 1
+            used.add(step)
+            ev = FaultEvent(step=step, kind="add", gpu=gpu)
+            self.events.append(ev)
+            self.fault_log.append({"step": self.step_i, "fault": f"recovery scheduled: {ev.spec()}"})
+            self._log(f"[fault] step {self.step_i}: outage heals at step {step} ({gpu} rejoins)")
+        # re-sort the pending tail; applied events all precede step_i < the
+        # new steps, so the cursor's prefix is stable and steps stay unique
+        self.events = validate_schedule(self.events)
 
     # -- the loop -----------------------------------------------------------------
 
@@ -295,6 +508,11 @@ class ElasticTrainer:
             if self._apply_due_events():
                 continue
             self._run_epoch()
+        if self.mgr:
+            # terminal checkpoint: a later --resume with more --steps continues
+            # from here instead of the last periodic save
+            self._save()
+        self.obs.close()
         return {
             "arch": self.model_cfg.name,
             "steps": self.step_i,
@@ -315,7 +533,7 @@ class ElasticTrainer:
             "events_pending": len(self.events) - self._event_idx,
             "straggler_flags": self.straggler_flags,
             "straggler_log": self.straggler_log,
-            "fault_log": [],
+            "fault_log": self.fault_log,
             "wall_s": round(time.time() - t_wall, 1),
         }
 
@@ -346,6 +564,10 @@ class ElasticTrainer:
             tokens = float(metrics["tokens"])
             self.step_log.append({"step": self.step_i, "loss": loss, "alloc": np.asarray(batch_np["alloc"]).tolist(),
                                   "wall_s": wall, "tokens": tokens})
+            # the metadata (controller state_dict + log tail) is serialized
+            # only on steps that save
+            if self.mgr and self.mgr.is_due(self.step_i):
+                self._save()
             if self.step_i % cfg.log_every == 0 or self.step_i == 1:
                 self._log(f"step {self.step_i:5d} loss {loss:.4f} tokens {tokens:.0f} alloc {alloc.tolist()}")
         if self.agg_index >= n_agg:
@@ -355,9 +577,13 @@ class ElasticTrainer:
         """Epoch boundary: read the timing source, update the controller
         (Alg. 1 steps 1-3), advance the data position."""
         alloc = np.asarray(self.alloc)
-        if self.timing.ready:
+        complete = self.simulated or self._timing_from_agg == 0
+        if self.timing.ready and complete:
             t_s = self.timing.epoch_times(alloc, self.epoch)
             t_c = _T_C_SIM if self.simulated else 0.0
+            # an active netdeg fault scales the collective model (measured
+            # mode folds collectives into the wall clock; nothing to scale)
+            t_c *= getattr(self.timing, "last_collective_scale", 1.0)
             flags = self.straggler.observe(t_s / np.maximum(alloc, 1), epoch=self.epoch, step=self.step_i)
             self.straggler_flags += len(flags)
             for f in flags:
@@ -381,6 +607,9 @@ class ElasticTrainer:
             if not self.simulated and steps_run > 0:
                 agg_s = float(np.max(t_s)) / steps_run
             if steps_run > 0:
+                # a resume can land on an epoch's last aggregation (saved after
+                # the step, before _finish_epoch): the controller update below
+                # is still due, but a 0-step epoch is not logged
                 self.epoch_log.append(
                     {
                         "epoch": self.epoch,
@@ -393,15 +622,32 @@ class ElasticTrainer:
                         "step_end": self.step_i,
                     }
                 )
+            if self.obs.enabled and steps_run > 0:
+                self.obs.on_epoch(
+                    self.epoch,
+                    self.step_i,
+                    steps_run,
+                    [float(t) for t in t_s],
+                    t_c,
+                    alloc,
+                    self.gpus,
+                    per_agg=self.simulated,
+                    coll_bytes=ring_allreduce_bytes(self._param_bytes, len(self.gpus)),
+                )
+                self.obs.on_flags(self.epoch, self.step_i, flags)
             if self.cfg.policy == "adaptive":
                 self.alloc = self.ctl.observe(t_s, t_c=t_c)
                 if int(np.max(self.alloc)) > self.w_max:
                     self._log(f"[capacity] allocation {self.alloc.tolist()} > w_max={self.w_max}; rebuilding")
                     self._build()
         else:
+            # a resume landed mid-epoch: the wall time before the restart is
+            # gone, so skip one controller update rather than feed it a
+            # truncated measurement, and drop the partial accumulation
             self.timing.reset()
         self.epoch += 1
         self.agg_index = 0
+        self._timing_from_agg = 0
 
     def _epoch_summary(self) -> dict:
         times = [e["epoch_s"] for e in self.epoch_log]

@@ -5,7 +5,7 @@ allocation controller join in a later slice)."""
 from repro_torch.serve.engine import ServeEngine, bucket_len
 from repro_torch.serve.paged import PagedLayout, PagePool
 from repro_torch.serve.scheduler import Request, Scheduler, SchedulerConfig, serve_loop, summarize
-from repro_torch.serve.workload import WorkloadConfig, synthesize
+from repro_torch.serve.workload import WorkloadConfig, from_trace, synthesize
 
 __all__ = [
     "PagePool",
@@ -18,5 +18,6 @@ __all__ = [
     "serve_loop",
     "summarize",
     "WorkloadConfig",
+    "from_trace",
     "synthesize",
 ]

@@ -15,6 +15,16 @@ template, then splices the template's positions into the slot's pages.
 Recurrent (RWKV) layers keep a per-slot state in either layout, and the
 splice overwrites the slot's row of it whole.
 
+Preemption (paged) keeps the evicted slot's cache: ``preempt`` copies its
+live K/V rows (and any recurrent row) to host memory in the resume token
+and releases its pages; ``restore`` copies them into freshly allocated
+pages.  The reference re-prefills prompt + generated tokens instead
+(``repro/serve/engine.py:640-699``), which gives the generated positions
+prefill arithmetic in place of decode arithmetic; in bfloat16 the two round
+apart, so only kept rows continue token-identically.  A restore is
+therefore no prefill here: ``prefills``/``prefill_tokens`` count admissions
+only, where the reference's count restores too.
+
 The engine makes one compute-dtype copy of the parameters at load
 (``models.transformer.compute_copy``), which is the same arithmetic as
 casting every matrix at its use.
@@ -58,7 +68,7 @@ class _Slot:
     out: list = dataclasses.field(default_factory=list)
     active: bool = False
     pos: int = 0  # host mirror of the device index clock (next position to write)
-    prompt: np.ndarray | None = None  # kept so preemption can re-prefill
+    prompt: np.ndarray | None = None  # kept for the resume token of a preemption
 
 
 class ServeEngine:
@@ -144,6 +154,9 @@ class ServeEngine:
         # layer, summed over ticks and slots (dense: the full cache every tick;
         # paged: each active slot's live tokens rounded up to pages)
         self.attended_key_tokens = 0
+        # the most recent tick's slice of the two counters above — what a
+        # per-tick cost model (obs) reads without differencing
+        self.last_tick_attended = self.last_tick_active = 0
 
     # -- state ---------------------------------------------------------------
 
@@ -236,16 +249,10 @@ class ServeEngine:
         if self.pool is not None:
             # attention layers: template positions 0..W-1 go to the slot's
             # pages; pad positions (p >= L) go to the trailing scratch page,
-            # so the scatter's only repeated indices land there.  The table
-            # lookup is clamped: the bucket may span more page slots than the
-            # table row has.  Recurrent layers: the slot's row, whole.
+            # so the scatter's only repeated indices land there.  Recurrent
+            # layers: the slot's row, whole.
             W = min(bucket, self.max_seq)
-            ps = self.layout.page_size
-            pidx = np.arange(W)
-            row = self.pool.table[b]
-            dest = np.where(pidx < L, row[np.minimum(pidx // ps, row.shape[0] - 1)], self.layout.n_pages)
-            dest_t = torch.from_numpy(dest.astype(np.int64)).to(self.device)
-            offs_t = torch.from_numpy(pidx % ps).to(self.device)
+            dest_t, offs_t = self._page_rows(b, W, L)
             for big, tmpl in zip(self.cache["layers"], small["layers"]):
                 if "k_pool" in big:
                     big["k_pool"][dest_t, offs_t] = tmpl["k"][0, :W].to(big["k_pool"].dtype)
@@ -261,21 +268,43 @@ class ServeEngine:
         self.prefill_tokens += L
         return int(tok)
 
-    # -- preemption (paged: pages are the checkpoint) -------------------------
+    def _page_rows(self, b: int, n: int, live: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(page, offset) device indices of slot ``b``'s positions 0..n-1 in
+        the pools; positions from ``live`` on go to the trailing scratch page.
+        The table lookup is clamped: ``n`` may span more page slots than the
+        table row has."""
+        ps = self.layout.page_size
+        pidx = np.arange(n)
+        row = self.pool.table[b]
+        dest = np.where(pidx < live, row[np.minimum(pidx // ps, row.shape[0] - 1)], self.layout.n_pages)
+        return (torch.from_numpy(dest.astype(np.int64)).to(self.device),
+                torch.from_numpy(pidx % ps).to(self.device))
+
+    # -- preemption (paged: the slot's K/V rows travel with the resume token) ----
 
     def can_preempt(self, slot: int) -> bool:
         """An active PAGED slot whose live prefix still fits the prefill
-        buffer can be evicted now and restored by re-prefill later."""
+        buffer can be evicted now (the reference's rule, which restores by
+        re-prefill) and restored token-identically later."""
         st = self.slots[slot]
         return self.pool is not None and st.active and st.pos <= self.max_seq
 
     def preempt(self, slot: int) -> dict:
-        """Evict an active slot: release its pages back to the pool and return
-        a resume token.  No cache tensors are saved: :meth:`restore`
-        re-prefills ``prompt + out[:-1]`` and re-seats the saved last token."""
+        """Evict an active slot: copy its live cache to host memory, release
+        its pages back to the pool and return the resume token.  ``cache``
+        holds, per layer, the K/V rows of positions 0..pos-1 (attention) or
+        the slot's row of the recurrent state; :meth:`restore` copies them
+        back and re-seats the saved last token."""
         if not self.can_preempt(slot):
             raise RuntimeError(f"slot {slot} cannot be preempted (inactive, dense, or prefix past the prefill buffer)")
         st = self.slots[slot]
+        dest_t, offs_t = self._page_rows(slot, st.pos, st.pos)
+        cache = []
+        for big in self.cache["layers"]:
+            if "k_pool" in big:
+                cache.append({key: big[key][dest_t, offs_t].cpu() for key in ("k_pool", "v_pool")})
+            else:  # a copy, not a view of the row the next occupant overwrites
+                cache.append({key: buf[slot].to("cpu", copy=True) for key, buf in big.items()})
         self.pool.release(slot)
         state = {
             "rid": st.rid,
@@ -284,6 +313,7 @@ class ServeEngine:
             "generated": st.generated,
             "max_gen": st.max_gen,
             "pos": st.pos,
+            "cache": cache,
         }
         self.slots[slot] = _Slot()
         self.preemptions += 1
@@ -295,9 +325,11 @@ class ServeEngine:
         return self.pool.can_reserve(state["pos"], state["max_gen"] - state["generated"] + 1)
 
     def restore(self, state: dict) -> int:
-        """Re-seat a preempted request: reserve pages for the remaining budget,
-        re-prefill the prompt + generated prefix, and overwrite the re-sampled
-        tail token with the SAVED one.  Returns the slot."""
+        """Re-seat a preempted request: reserve pages for the remaining budget
+        (the original admission's worst case), copy the saved K/V rows into
+        the new pages and any recurrent row into the slot, and re-seat the
+        saved last token.  The continuation is token-identical to the run
+        without eviction.  Returns the slot."""
         if self.pool is None:
             raise RuntimeError("restore requires a paged engine")
         free = self.free_slots
@@ -305,12 +337,20 @@ class ServeEngine:
             raise RuntimeError("no free slot — restore must be gated on can_restore")
         b = free[0]
         prompt, out, pos = state["prompt"], state["out"], state["pos"]
-        prefix = np.concatenate([np.asarray(prompt, np.int32), np.asarray(out[:-1], np.int32)])
-        if prefix.shape[0] != pos:
-            raise RuntimeError(f"corrupt resume state: prefix {prefix.shape[0]} != pos {pos}")
+        if len(prompt) + len(out) - 1 != pos:
+            raise RuntimeError(f"corrupt resume state: prefix {len(prompt) + len(out) - 1} != pos {pos}")
         self.pool.reserve_or_fail(b, pos, state["max_gen"] - state["generated"] + 1)
         self.pool.allocate_prefix(b, pos)
-        self._prefill_into_slot(b, prefix)
+        dest_t, offs_t = self._page_rows(b, pos, pos)
+        for big, saved in zip(self.cache["layers"], state["cache"], strict=True):
+            if "k_pool" in big:
+                for key, rows in saved.items():
+                    big[key][dest_t, offs_t] = rows.to(self.device)
+            else:
+                for key, row in saved.items():
+                    big[key][b] = row.to(self.device)
+        self.cache["index"][b] = pos
+        self._ship_table()
         self.last_tok[b] = int(out[-1])  # the saved token, not a resample
         st = self.slots[b]
         st.rid, st.max_gen, st.generated, st.active = state["rid"], state["max_gen"], state["generated"], True
@@ -337,6 +377,8 @@ class ServeEngine:
         else:
             attended = self.n_slots * self.max_seq
         self.attended_key_tokens += attended
+        self.last_tick_attended = attended
+        self.last_tick_active = n_active
         logits, self.cache = decode_step(self.params, self.cache, self.last_tok, self.cfg)
         self.last_tok = self._sample(logits)
         self.ticks += 1

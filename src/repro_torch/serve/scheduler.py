@@ -1,6 +1,6 @@
 """Request queue, admission policy, and the serve loop (a copy of
-``repro.serve.scheduler``; observability hooks go to a null observer until
-the port's obs slice).
+``repro.serve.scheduler``, less the protocol model checker's
+``Scheduler.fingerprint``).
 
 Time is measured in *ticks* (one engine decode step == 1.0): deterministic
 on CPU, and the unit the router's virtual clocks scale by replica speed.
@@ -15,32 +15,9 @@ import time
 
 import numpy as np
 
-__all__ = ["NULL_SERVE_OBS", "Request", "SchedulerConfig", "Scheduler", "serve_loop", "summarize"]
+from repro_torch.obs.hooks import NULL_SERVE_OBS
 
-
-class _NullServeObs:
-    """Accepts the serve loop's hooks and records nothing."""
-
-    def on_admit(self, req, slot, now) -> None:
-        pass
-
-    def on_defer(self, reason, now) -> None:
-        pass
-
-    def on_preempt(self, rid, slot, now) -> None:
-        pass
-
-    def on_restore(self, rid, slot, now) -> None:
-        pass
-
-    def on_tick(self, now, dt, engine, queued) -> None:
-        pass
-
-    def on_finish(self, req, now) -> None:
-        pass
-
-
-NULL_SERVE_OBS = _NullServeObs()
+__all__ = ["Request", "SchedulerConfig", "Scheduler", "serve_loop", "summarize"]
 
 
 @dataclasses.dataclass
@@ -73,14 +50,13 @@ class SchedulerConfig:
                           bounds how long decode stalls behind prefill work.
     continuous            False: static-batch baseline — admit only when the
                           engine is fully idle, then fill every slot (the old
-                          serve loop's behavior, kept as the bench baseline).
+                          serve driver's behavior, kept as the bench baseline).
     preempt               graceful degradation (paged engines): under pool
                           pressure, evict the active slot with the MOST
                           remaining generation budget back to the page pool
                           (pages are the checkpoint) so the blocked head can
-                          enter; the victim is re-prefilled once pressure
-                          clears (token-identical where prefill and decode
-                          round alike, as in float32).
+                          enter; the victim restores token-identically once
+                          pressure clears.
     """
 
     max_waiting_prefill: int = 2
@@ -187,14 +163,18 @@ def serve_loop(
     config: SchedulerConfig | None = None,
     *,
     obs=None,
+    tick_cost=None,
 ) -> dict:
     """Drive ``engine`` through ``requests`` (arrivals in tick time).
 
     Mutates each request's ``output``/``t_admit``/``t_finish`` in place and
     returns ``summarize(...)`` of the run.
 
-    ``obs`` receives admit/defer/tick/finish hooks on the tick clock (the
-    null observer by default)."""
+    ``obs`` (a :class:`repro_torch.obs.ServeObs`) receives admit/defer/tick/finish
+    hooks on the tick clock.  ``tick_cost``, if given, maps ``engine`` (after
+    its decode step) to that tick's duration in seconds — a cost model, or
+    the wall seconds the tick took; the default keeps 1 tick == 1.0,
+    bit-identical to the uninstrumented loop."""
     obs = obs if obs is not None else NULL_SERVE_OBS
     sched = Scheduler(config, obs=obs)
     pending = collections.deque(sorted(requests, key=lambda r: r.arrival))
@@ -217,10 +197,11 @@ def serve_loop(
             complete(rid, toks, clock)
         if engine.has_active:
             retired = engine.tick()
-            clock += 1.0
+            dt = 1.0 if tick_cost is None else float(tick_cost(engine))
+            clock += dt
             for rid, toks in retired:
                 complete(rid, toks, clock)
-            obs.on_tick(clock, 1.0, engine, len(sched.queue))
+            obs.on_tick(clock, dt, engine, len(sched.queue))
         elif pending:
             clock = max(clock, pending[0].arrival)
         elif sched.queue or sched.preempted:  # idle engine + parked work: admit next loop pass

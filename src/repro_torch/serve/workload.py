@@ -1,5 +1,6 @@
-"""Request-traffic synthesis: Poisson arrivals, mixed lengths (a copy of
-``repro.serve.workload``; trace replay waits for the port's traces slice).
+"""Request-traffic synthesis: Poisson arrivals, mixed lengths, traces (a copy
+of ``repro.serve.workload`` for token-id prompts, the only prompts the
+port's architectures take).
 
 All randomness is seeded from numpy, in the reference's order, so a seed
 gives the JAX side's exact requests.
@@ -13,7 +14,7 @@ import numpy as np
 
 from repro_torch.serve.scheduler import Request
 
-__all__ = ["WorkloadConfig", "synthesize"]
+__all__ = ["WorkloadConfig", "synthesize", "from_trace"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,4 +51,33 @@ def synthesize(cfg: WorkloadConfig) -> list[Request]:
         G = int(rng.integers(cfg.gen_len[0], cfg.gen_len[1] + 1))
         prompt = rng.integers(0, cfg.vocab_size, L).astype(np.int32)
         reqs.append(Request(rid=i, prompt=prompt, max_gen=G, arrival=float(arrivals[i])))
+    return reqs
+
+
+def from_trace(
+    records: list[dict],
+    vocab_size: int = 256,
+    seed: int = 0,
+    time_scale: float = 1.0,
+) -> list[Request]:
+    """Build requests from a trace: [{"arrival": t, "prompt_len": L,
+    "gen_len": G}, ...].  Token contents are synthesized deterministically;
+    ``time_scale`` maps trace time onto engine ticks.
+    Arrivals must be non-decreasing — the scheduler admits in arrival order,
+    so a shuffled trace would silently serve a different workload."""
+    if time_scale <= 0:
+        raise ValueError("time_scale must be positive")
+    rng = np.random.default_rng(seed)
+    reqs = []
+    prev = float("-inf")
+    for i, rec in enumerate(records):
+        L, G = int(rec["prompt_len"]), int(rec["gen_len"])
+        if L < 1 or G < 1:
+            raise ValueError(f"trace record {i}: prompt_len/gen_len must be >= 1")
+        arrival = float(rec.get("arrival", 0.0)) * time_scale
+        if arrival < prev:
+            raise ValueError(f"trace record {i}: arrivals must be non-decreasing")
+        prev = arrival
+        prompt = rng.integers(0, vocab_size, L).astype(np.int32)
+        reqs.append(Request(rid=i, prompt=prompt, max_gen=G, arrival=arrival))
     return reqs

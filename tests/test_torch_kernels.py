@@ -196,6 +196,34 @@ def test_paged_plain_int8_matches_pallas(pallas, q_dtype):
     _close(got, want, q_dtype)
 
 
+PAST_POOL = [  # (H, Hkv, Dh, page id past the pool): a 5-page pool (ids 0..4, scratch 5), page_size 4
+    (4, 2, 64, 7),
+    (15, 5, 64, 1000),
+]
+
+
+def _past_pool_inputs(H, Hkv, Dh, past, seed=21):
+    """Pages [[0, past]] on a 5-page pool, length 8, and the same table naming the scratch page."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((1, H, Dh), np.float32)
+    k_pool, v_pool = (rng.standard_normal((6, 4, Hkv, Dh), np.float32) for _ in range(2))
+    return q, k_pool, v_pool, np.array([[0, past]], np.int32), np.array([[0, 5]], np.int32), np.array([8], np.int32)
+
+
+@pytest.mark.parametrize("H,Hkv,Dh,past", PAST_POOL)
+def test_paged_plain_attends_a_page_past_the_pool_as_the_scratch_page(pallas, H, Hkv, Dh, past):
+    """A page id >= n_pages + 1 names the scratch page and stays live: the port
+    follows the JAX package, whose gather and Pallas block fetch clamp."""
+    from repro.kernels.ref import paged_attention_ref as jax_paged_ref
+
+    q, kp, vp, table, scratch_table, lens = _past_pool_inputs(H, Hkv, Dh, past)
+    jnp = pallas.jnp
+    got = ops.paged_attention(_t(q), _t(kp), _t(vp), _t(table), _t(lens))
+    _close(got, pallas.paged(*map(jnp.asarray, (q, kp, vp, table, lens)), interpret=True), "float32")
+    _close(got, jax_paged_ref(*map(jnp.asarray, (q, kp, vp, table, lens))), "float32")
+    assert torch.equal(got, ops.paged_attention(_t(q), _t(kp), _t(vp), _t(scratch_table), _t(lens)))
+
+
 def test_paged_plain_matches_flash_plain_contiguous():
     """A contiguous single slot: paged decode equals flash attention's last query row."""
     L = 11
@@ -641,6 +669,19 @@ def test_paged_cuda_pages_larger_than_a_tile_match_plain(cuda, dt, int8, window,
     want = paged_attention_ref(*args, window=window, softcap=softcap)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dt], atol=TOL[dt])
     assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hkv,Dh,past", PAST_POOL)
+def test_paged_cuda_attends_a_page_past_the_pool_as_the_scratch_page(cuda, dt, H, Hkv, Dh, past):
+    q, kp, vp, table, scratch_table, lens = _past_pool_inputs(H, Hkv, Dh, past)
+    q, kp, vp = (_t(x, dt, cuda) for x in (q, kp, vp))
+    lens = _t(lens, device=cuda)
+    got = paged_attention_cuda(q, kp, vp, _t(table, device=cuda), lens)
+    assert torch.equal(got, paged_attention_cuda(q, kp, vp, _t(scratch_table, device=cuda), lens))
+    want = paged_attention_ref(q, kp, vp, _t(table, device=cuda), lens)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dt], atol=TOL[dt])
 
 
 @pytest.mark.gpu

@@ -10,6 +10,7 @@ points default to the card.
 """
 
 import ast
+import dataclasses
 import json
 import os
 import subprocess
@@ -139,6 +140,52 @@ def test_engine_preempt_restore_is_token_identical(smol):
     teng.reset()
 
 
+def _slot_rows(eng, slot):
+    """Slot ``slot``'s live K/V rows, layer by layer, read through its page table."""
+    pos = torch.arange(eng.slots[slot].pos)
+    ps = eng.layout.page_size
+    dest, offs = torch.from_numpy(eng.pool.table[slot]).long()[pos // ps], pos % ps
+    return [(layer["k_pool"][dest, offs].clone(), layer["v_pool"][dest, offs].clone()) for layer in eng.cache["layers"]]
+
+
+def test_bf16_restore_keeps_the_rows_and_continues_token_identically(smol):
+    """A bf16 engine evicts a request mid-generation: the restored slot's K/V
+    rows are the evicted ones bit for bit, and the request continues as it
+    would have without eviction.  A restore is no prefill."""
+    _, tcfg, _, tp = smol
+    cfg = dataclasses.replace(tcfg, compute_dtype="bfloat16")
+    eng = ServeEngine(cfg, tp, n_slots=2, max_seq=32, attn_impl="paged", page_size=4, device="cpu")
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(0, cfg.vocab_size, 7).astype(np.int32)
+    other = rng.integers(0, cfg.vocab_size, 9).astype(np.int32)
+
+    def finish(rid):
+        while eng.has_active:
+            for fid, toks in eng.tick():
+                if fid == rid:
+                    return toks
+        raise AssertionError("request never finished")
+
+    eng.admit(0, prompt, 16)
+    want = finish(0)
+    eng.reset()
+    slot, _ = eng.admit(1, prompt, 16)
+    for _ in range(6):
+        eng.tick()
+    rows = _slot_rows(eng, slot)
+    state = eng.preempt(slot)
+    eng.admit(2, other, 5)  # an interloper takes the freed pages and writes them
+    finish(2)
+    prefills = eng.prefills
+    slot = eng.restore(state)
+    assert eng.prefills == prefills and eng.restores == 1
+    for (k, v), (k0, v0) in zip(_slot_rows(eng, slot), rows, strict=True):
+        assert torch.equal(k, k0) and torch.equal(v, v0)
+    assert k.dtype == torch.bfloat16
+    assert finish(1) == want
+    eng.reset()
+
+
 def test_flash_prefill_logits_match_naive(smol):
     """A flash engine's admission prefill gives the naive engine's logits in float32."""
     from repro_torch.models import prefill
@@ -167,6 +214,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch, repro_torch.launch.serve, repro_torch.serve, repro_torch.kernels.ops\n"
         "import repro_torch.models.convert, repro_torch.launch.train, repro_torch.runtime.driver\n"
         "import repro_torch.dist.hetero_step, repro_torch.optim, repro_torch.core, repro_torch.data\n"
+        "import repro_torch.checkpoint, repro_torch.obs, repro_torch.traces, repro_torch.traces.campaign\n"
+        "import repro_torch.traces.synth\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

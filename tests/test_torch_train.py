@@ -460,13 +460,6 @@ def test_elastic_trainer_matches_the_reference_driver():
     assert len(tres["memberships"]) == 1 and len({tuple(e["alloc"]) for e in tres["epoch_log"]}) > 1
 
 
-def test_driver_refuses_the_options_of_later_slices():
-    for key, val in (("ckpt_dir", "/nonexistent"), ("resume", True), ("faults", "slow@2:1*2~2"),
-                     ("trace_out", "t.json"), ("metrics_out", "m.json")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ElasticTrainer(DriverConfig(**dict(SCHEDULE, **{key: val}), device="cpu"))
-
-
 def _env():
     return {**os.environ, "PYTHONPATH": str(ROOT / "src")}
 
