@@ -119,6 +119,41 @@ nonzero exit and no result line, if anything is wrong:
     either way).  Each save and restore is logged with its seconds and
     bytes; ``weighted_accum`` runs once a microbatch in every run.
 
+13. Multi-process step, NCCL at world size 1 (``train_dist_nccl``): the
+    driver on a real NCCL group of one rank (a FileStore in a temp
+    directory), smollm-360m at full width and depth, seq 512, while mode,
+    the driver's ring, ``fsdp="gather"``, 2 steps over train_resume's
+    fleet and faults: the (1, 1) mesh is the identity, so losses, parameters
+    and AdamW moments equal the same run outside a process group bit for
+    bit; ``weighted_accum`` runs once a microbatch.
+14. Multi-process step, four ranks on the one card (``train_dist_gloo``):
+    four spawned processes join a gloo group (NCCL refuses two ranks on one
+    card), the ring's buffers staged through pinned host memory, and train
+    the same model and seq over v100, rtx2080ti x2, gtx1080ti, while mode,
+    ring, ``fsdp="gather"``, 2 steps an epoch, 4 steps, ``fail@3:3`` (the
+    group shrinks to 3 for the fourth step and the state is re-sharded).  Every rank's
+    allocation trajectory and membership log equal the one-process run of
+    the same schedule, the losses agree within ``MASKED_RTOL``, the final
+    parameters and AdamW moments, gathered, within ``DIST_STATE_RTOL`` of
+    the one-process run's, each rank holds about a quarter of the train
+    state on the 4-rank mesh, its ring bytes and reduce steps equal those
+    the specs plan (``ring_allreduce_bytes`` a ring; the reduction over
+    gloo of every CUDA tensor, scalars included, is the ring, so its adds
+    stay on the card), and its ``weighted_accum`` launches less its
+    microbatches equal the reduce steps the ring counted.  The step walls
+    and collective seconds are host-staged gloo on one card, no
+    interconnect figure.
+15. RWKV6 training (``train_rwkv``): rwkv6-1.6b at full width and depth
+    through ``rwkv_train``, seq 512, 4 microbatches a step over 2 simulated
+    workers, 2 steps, while mode: finite losses and gradient norms,
+    ``weighted_accum`` once a microbatch, no ``rwkv6_scan`` launch (training
+    takes the chunked WKV), the allocation trajectory of the CPU smoke run;
+    peak memory logged.
+
+The weighted_accum row of the kernels line counts the launches of every
+training path (8, 13, 14 summed over the ranks, 15), the ring's reduce steps
+among them.
+
 The last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -1282,6 +1317,276 @@ def phase_train_resume():
         shutil.rmtree(root, ignore_errors=True)
 
 
+# train_dist: smollm-360m at seq 512, while mode, the ring and gathered FSDP.  (a) NCCL at world size 1: two
+# steps over train_resume's fleet and faults, against the same run outside a process group.  (b) four
+# processes on the one card over gloo (the ring's buffers staged through pinned host memory): the four
+# simulated workers, 2 steps an epoch, 4 steps, worker 3 failing at step 3.
+DIST_NCCL = dict(RESUME, steps=2, fsdp="gather")
+DIST_GLOO = dict(arch="smollm-360m", steps=4, micro_bs=1, total_micro=4, n_workers=4,
+                 hetero_gpus="v100,rtx2080ti,rtx2080ti,gtx1080ti", steps_per_epoch=2, policy="adaptive",
+                 mode="while", fsdp="gather", events="fail@3:3", seed=0, device="cuda", verbose=False)
+DIST_RANKS = 4
+# four ranks vs one process after 4 steps: per tensor ||a - b|| / ||b|| of the parameters and AdamW moments.
+# Only the order of the cross-rank sums differs (float32 rounding, about 1e-6); a chunk the ring dropped or
+# added twice moves a rank's share (about a quarter) of that chunk's gradient, and so of mu and nu, which
+# is 1e-1 or more of the tensor's norm.  AdamW's first steps are near sign(g), so the parameters alone
+# could not see it: the moments can.
+DIST_STATE_RTOL = 1e-3
+# train_rwkv: rwkv6-1.6b at full width and depth, seq 512, 4 microbatches a step over 2 simulated workers
+RWKV_TRAIN = dict(arch="rwkv6-1.6b", steps=2, micro_bs=1, total_micro=4, n_workers=2, hetero_gpus="v100,gtx1080ti",
+                  steps_per_epoch=2, policy="adaptive", mode="while", seed=0, log_every=1, device="cuda")
+TRAIN_SEQ = 512
+
+
+def _seq_cfg(arch):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), max_seq=TRAIN_SEQ)
+
+
+def _ring_plan(n):
+    """What one step of smollm-360m under fsdp="gather" on an (n, 1) mesh, gloo carrying CUDA tensors, sends
+    through the ring and how many reduce steps it adds, from the specs alone.  Every gradient tensor takes
+    one ring (a sharded one the reduce-scatter, whose gather of the parameters sends as much again; a
+    replicated one the allreduce, which is what all_reduce is when staged), and so do the loss and token
+    sums and the global norm's partial sum of each class of tensors sharded over "data".  A ring of n ranks
+    adds n - 1 times; float32 throughout."""
+    from repro_torch.dist.collectives import ring_allreduce_bytes, spec_dims
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.models import Transformer
+
+    cfg = _seq_cfg("smollm-360m")
+    skeleton = Transformer(cfg, device="meta")
+    specs = param_specs(skeleton, {"data": n, "model": 1}, cfg, fsdp=True)
+    axes = [tuple(ax for _, names in spec_dims(spec, p.ndim) for ax in names)
+            for p, spec in zip(skeleton.parameters(), specs)]
+    sizes = [p.numel() for p in skeleton.parameters()]
+    sharded = [m for m, a in zip(sizes, axes) if "data" in a]
+    replicated = [m for m, a in zip(sizes, axes) if "data" not in a]
+    scalars = 2 + sum(a.count("data") for a in set(axes))
+    rings = len(sizes) + scalars
+    padded = [4 * n * -(-m // n) for m in replicated + [1] * scalars]
+    return {"sharded_leaves": len(sharded), "replicated_leaves": len(replicated), "scalar_rings": scalars,
+            "reduce_steps": rings * (n - 1),
+            "ring_bytes": ring_allreduce_bytes(4 * sum(sharded), n) + sum(ring_allreduce_bytes(b, n) for b in padded)}
+
+
+def phase_train_dist_nccl():
+    """(a) The multi-process driver on a real NCCL group of one rank: the (1, 1)
+    mesh, as the reference's, is the identity, so the losses, parameters and
+    AdamW moments equal the run outside a process group bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.driver import DriverConfig, ElasticTrainer
+
+    model_cfg = _seq_cfg("smollm-360m")
+    one = ElasticTrainer(DriverConfig(**DIST_NCCL), model_cfg=model_cfg)
+    one.run()
+    want = {"losses": one.losses, "leaves": _state_leaves(one)}
+    root = Path(tempfile.mkdtemp(prefix="train_dist_"))
+    dist.init_process_group("nccl", store=dist.FileStore(str(root / "store"), 1), rank=0, world_size=1)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = ElasticTrainer(DriverConfig(**DIST_NCCL), model_cfg=model_cfg)
+        tr.run()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        backend = dist.get_backend(tr.mesh.get_group("data"))
+        shape = tuple(tr.mesh.shape)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    got = {"losses": tr.losses, "leaves": _state_leaves(tr)}
+    same = {"losses": got["losses"] == want["losses"],
+            "state": all(torch.equal(x, y) for (_, x), (_, y) in zip(got["leaves"], want["leaves"], strict=True))}
+    micro = sum(sum(r["alloc"]) for r in tr.step_log)
+    log(phase="train_dist_nccl", backend=backend, mesh=shape, world_size=1, steps=len(tr.losses), losses=tr.losses,
+        grad_norms=[r["grad_norm"] for r in tr.step_log], bit_equal=same, launches=launches, microbatches=micro,
+        seconds=time.perf_counter() - t0, step_wall_s=[r["wall_s"] for r in tr.step_log])
+    if not all(same.values()):
+        log(phase="train_dist_nccl_mismatch", first_difference=_first_difference(got, want))
+    check(backend == "nccl" and shape == (1, 1), f"train_dist (a): an NCCL (1, 1) mesh ({backend}, {shape})")
+    check(all(same.values()), f"train_dist (a): bit-equal to the run outside a process group {same}")
+    check(launches["weighted_accum"] == micro > 0, "train_dist (a): one weighted_accum launch a microbatch")
+    del one, tr, want, got
+    return launches["weighted_accum"]
+
+
+def _dist_rank(rank, world, store, out_dir):
+    """One process of train_dist (b): joins the gloo group on the card, trains
+    DIST_GLOO through the driver, and writes what it saw to ``out_dir``."""
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from repro_torch.dist.hetero_step import gather_train_state
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import join_process_group
+    from repro_torch.runtime.driver import DriverConfig, ElasticTrainer
+
+    device = join_process_group("cuda", "gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = ElasticTrainer(DriverConfig(**DIST_GLOO), model_cfg=_seq_cfg("smollm-360m"))
+        local = sum(p.numel() for p in tr.state["params"].parameters()) + sum(
+            t.numel() for key in ("mu", "nu") for t in tr.state["opt"][key])
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        res = tr.run()
+        torch.cuda.synchronize()
+        out = {
+            "rank": rank, "device": str(device), "backend": dist.get_backend(), "init_s": init_s,
+            "state_ratio": local / (3 * SMOLLM_PARAMS), "losses": tr.losses, "step_log": tr.step_log,
+            "memberships": res["memberships"], "epoch_allocs": [e["alloc"] for e in res["epoch_log"]],
+            "final_allocation": res["final_allocation"], "launches": ops.launch_counts(),
+            "ring_bytes": tr.comm.ring_bytes, "reduce_steps": tr.comm.reduce_steps, "collective_s": tr.comm.seconds,
+            "mesh": tuple(tr.mesh.shape), "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        if tr._pspecs is not None:  # the final mesh's ranks rebuild the full state, collectively
+            gather_train_state(tr.state, tr._pspecs, tr.mesh)
+        if rank == 0:
+            torch.save({name: t.cpu() for name, t in _state_leaves(tr)[:-2]}, Path(out_dir) / "state_rank0.pt")
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+        dist.barrier()  # no rank tears its connections down while another still uses them
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_dist_gloo():
+    """(b) Four processes on the one card (gloo, host-staged exchange) against
+    the one-process run of the same schedule; returns the ranks'
+    weighted_accum launches and how many of them were the ring's adds
+    (launches less microbatches)."""
+    import multiprocessing
+
+    from repro_torch.runtime.driver import DriverConfig, ElasticTrainer
+
+    t0 = time.perf_counter()
+    one = ElasticTrainer(DriverConfig(**DIST_GLOO), model_cfg=_seq_cfg("smollm-360m"))
+    ones = one.run()
+    want = {"losses": one.losses, "allocs": [r["alloc"] for r in one.step_log], "memberships": ones["memberships"],
+            "epoch_allocs": [e["alloc"] for e in ones["epoch_log"]], "final_allocation": ones["final_allocation"]}
+    one_s = time.perf_counter() - t0
+    one_state = dict(_state_leaves(one)[:-2])  # parameters and moments, held on the card for the comparison
+    del one
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="train_dist_gloo_"))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dist_rank, args=(r, DIST_RANKS, str(root / "store"), str(root)))
+             for r in range(DIST_RANKS)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=900)
+        codes = [p.exitcode for p in procs]
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(DIST_RANKS) if codes[r] == 0]
+        check(codes == [0] * DIST_RANKS, f"train_dist (b): every rank exits 0 {codes}")
+        got = torch.load(root / "state_rank0.pt", map_location="cuda")
+        check(got.keys() == one_state.keys(), "train_dist (b): the gathered state has the one-process tree")
+        state_err = {}
+        for name, ref in one_state.items():
+            err = (torch.linalg.vector_norm(got[name].double() - ref.double())
+                   / torch.linalg.vector_norm(ref.double()).clamp(min=1e-30)).item()
+            part = name.split(".")[0] if name.startswith("params") else ".".join(name.split(".")[:2])
+            state_err[part] = max(state_err.get(part, 0.0), err)
+        del got, one_state
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = ranks[0]
+    # each step: the group's size n and, per rank on the mesh, its own microbatches (its one rank row)
+    sizes = [len(r["alloc"]) for r in r0["step_log"]]
+    plans = {n: _ring_plan(n) for n in set(sizes)}
+    rows = []
+    for rk in ranks:
+        on = [i for i, n in enumerate(sizes) if rk["rank"] < n]
+        micro = sum(r0["step_log"][i]["alloc"][rk["rank"]] for i in on)
+        launched = rk["launches"]["weighted_accum"]
+        rows.append({"rank": rk["rank"], "steps_on_mesh": len(on), "microbatches": micro,
+                     "weighted_accum_launches": launched, "ring_launches": launched - micro,
+                     "ring_reduce_steps": rk["reduce_steps"],
+                     "planned_reduce_steps": sum(plans[sizes[i]]["reduce_steps"] for i in on),
+                     "ring_bytes": rk["ring_bytes"],
+                     "planned_ring_bytes": sum(plans[sizes[i]]["ring_bytes"] for i in on),
+                     "state_ratio_at_4": rk["state_ratio"],
+                     "collective_s_host_staged": rk["collective_s"], "init_s": rk["init_s"],
+                     "peak_memory_gb": rk["peak_memory_gb"], "launches": rk["launches"]})
+    gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], want["losses"]))
+    log(phase="train_dist_gloo", label="host-staged gloo, 4 processes on one card: no interconnect figure",
+        backend=r0["backend"], ranks=DIST_RANKS, group_sizes=sizes, losses=r0["losses"],
+        one_process_losses=want["losses"], loss_rel_gap=gap, rtol=MASKED_RTOL, grad_norms=[r["grad_norm"] for r in r0["step_log"]],
+        step_wall_s_host_staged=[r["wall_s"] for r in r0["step_log"]], per_rank=rows, wall_s=wall,
+        one_process_s=one_s, ring_plans=plans, state_rel_err=state_err, state_rtol=DIST_STATE_RTOL,
+        memberships=r0["memberships"], epoch_allocs=r0["epoch_allocs"])
+    for rk in ranks:
+        same = {"allocs": [r["alloc"] for r in rk["step_log"]] == want["allocs"],
+                "memberships": rk["memberships"] == want["memberships"],
+                "epoch_allocs": rk["epoch_allocs"] == want["epoch_allocs"],
+                "final_allocation": rk["final_allocation"] == want["final_allocation"],
+                "losses": rk["losses"] == r0["losses"]}
+        check(all(same.values()), f"train_dist (b) rank {rk['rank']}: the one-process trajectory {same}")
+    # fail@3 comes due once 3 steps are done: the fourth step runs on the 3 survivors
+    check(sizes == [4, 4, 4, 3] and len(want["memberships"]) == 1, f"train_dist (b): the group shrinks {sizes}")
+    check(gap <= MASKED_RTOL, f"train_dist (b): losses within {MASKED_RTOL} of one process ({gap})")
+    check(len(state_err) == 3 and max(state_err.values()) <= DIST_STATE_RTOL,
+          f"train_dist (b): parameters and moments within {DIST_STATE_RTOL} of one process {state_err}")
+    for row in rows:
+        check(0.2 < row["state_ratio_at_4"] < 0.3, f"train_dist (b): about a quarter of the state a rank {row}")
+        check(row["ring_bytes"] == row["planned_ring_bytes"], f"train_dist (b): ring bytes {row}")
+        check(row["ring_reduce_steps"] == row["planned_reduce_steps"], f"train_dist (b): ring reduce steps {row}")
+        check(row["ring_launches"] == row["ring_reduce_steps"],
+              f"train_dist (b): weighted_accum = microbatches + ring reduce steps {row}")
+    return {"launches": sum(r["weighted_accum_launches"] for r in rows),
+            "ring_launches": sum(r["ring_launches"] for r in rows)}
+
+
+def phase_train_rwkv():
+    """rwkv6-1.6b trains through ``rwkv_train`` at full width and depth."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.driver import DriverConfig, ElasticTrainer
+
+    t0 = time.perf_counter()
+    trainer = ElasticTrainer(DriverConfig(**RWKV_TRAIN), model_cfg=_seq_cfg("rwkv6-1.6b"))
+    cfg = trainer.model_cfg
+    n_params = sum(p.numel() for p in trainer.state["params"].parameters())
+    check((cfg.n_layers, cfg.d_model, trainer.seq_len, n_params) == (24, 2048, TRAIN_SEQ, RWKV_PARAMS),
+          "train_rwkv: rwkv6-1.6b at full width and depth, seq 512")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    micro = sum(sum(r["alloc"]) for r in trainer.step_log)
+    small = ElasticTrainer(DriverConfig(**dict(RWKV_TRAIN, device="cpu", smoke=True, seq=32, verbose=False))).run()
+    same = {key: small[key] == result[key] for key in ("memberships", "final_allocation", "epoch")}
+    same["epoch_allocs"] = [e["alloc"] for e in small["epoch_log"]] == [e["alloc"] for e in result["epoch_log"]]
+    log(phase="train_rwkv", params=n_params, seq=trainer.seq_len, init_s=init_s, wall_s=wall,
+        steps=[{k: r[k] for k in ("step", "loss", "grad_norm", "alloc", "wall_s", "tokens")} for r in trainer.step_log],
+        launches=launches, microbatches=micro, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        final_allocation=result["final_allocation"], vs_cpu_smoke=same)
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in trainer.step_log)
+          and len(trainer.step_log) == RWKV_TRAIN["steps"], "train_rwkv: finite losses and gradient norms")
+    check(launches["weighted_accum"] == micro > 0, f"train_rwkv: one weighted_accum launch a microbatch {launches}")
+    check(launches["rwkv6_scan"] == 0, "train_rwkv: training takes the chunked WKV, no rwkv6_scan launch")
+    check(all(same.values()), f"train_rwkv: the allocation trajectory equals the CPU smoke run's {same}")
+    del trainer
+    return launches["weighted_accum"]
+
+
 def accum_timing_row(counts, main_err):
     """The weighted_accum row: one accumulation over smollm-360m's whole float32
     gradient tree (one launch) and over the embedding alone; the library call
@@ -1323,8 +1628,9 @@ def accum_timing_row(counts, main_err):
     nbytes = 3 * 4 * n  # acc and g read once, out written once, float32
     row = dict(
         name="weighted_accum", route="cuda", source="src/repro_torch/kernels/csrc/weighted_accum.cu",
-        replaces="src/repro/kernels/weighted_accum.py:32", launches=counts["launches"],
-        tensors_accumulated=counts["tensors"], max_abs_err=main_err,
+        replaces="src/repro/kernels/weighted_accum.py:32", launches=sum(counts["by_path"].values()),
+        launches_by_path=counts["by_path"], ring_launches=counts["ring_launches"],
+        tensors_accumulated_train=counts["tensors"], max_abs_err=main_err,
         ms=device_ms(tree, "weighted_accum tree", iters=10, warmup=2),
         plain_ms=device_ms(plain, "weighted_accum plain tree", iters=5, warmup=1),
         library_ms=device_ms(foreach, "torch._foreach_add_ tree", iters=10, warmup=2),
@@ -1549,6 +1855,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_resume()
     torch.cuda.empty_cache()
+    dist_nccl = phase_train_dist_nccl()
+    torch.cuda.empty_cache()
+    dist_gloo = phase_train_dist_gloo()
+    torch.cuda.empty_cache()
+    rwkv_train = phase_train_rwkv()
+    torch.cuda.empty_cache()
+    accum_counts["by_path"] = {"train": accum_counts["launches"], "train_dist_nccl": dist_nccl,
+                               "train_dist_gloo": dist_gloo["launches"], "train_rwkv": rwkv_train}
+    accum_counts["ring_launches"] = dist_gloo["ring_launches"]
 
     rows = phase_timing(
         main_err,

@@ -1,7 +1,7 @@
 """The paper's heterogeneous train step: per-rank variable microbatch counts.
 
-The port of ``repro.dist.hetero_step`` for one process.  A step consumes
-rank-major padded buffers
+The port of ``repro.dist.hetero_step``.  A step consumes rank-major padded
+buffers
 
     inputs/targets: (R, W_max, micro_bs, seq)   alloc: (R,) int
 
@@ -14,12 +14,25 @@ padding.  Two executions of the same math:
 * ``mode="masked"`` — every one of the W_max slots is paid on every rank and
   weighted by ``1[j < alloc[r]]`` (``_masked_grads``).
 
-One process holds every rank, as the reference's driver does on one device
-(``repro/runtime/driver.py:242`` builds a (1, 1) mesh there): the cross-rank
-reduction is then the identity, so ``collective="ring"`` and
-``fsdp="gather"`` are accepted and validated as in the reference and change
-nothing on one shard.  Their multi-process ``torch.distributed`` form is a
-later slice.
+Without a mesh one process holds every rank, as the reference's driver does
+on one device (a (1, 1) mesh): the cross-rank reduction is the identity.
+With a mesh (``launch.mesh``, one process per rank of its allocation axis)
+each process runs its own ``R / n`` rank rows into one local carry, then:
+
+* while mode reduces over the allocation axis's group: ``all_reduce`` for
+  ``collective="psum"``, ``collectives.ring_allreduce_tree`` for ``"ring"``;
+  the loss and token scalars always take ``all_reduce`` (which is itself the
+  ring where gloo carries CUDA tensors, so every add stays on the card);
+* ``fsdp="gather"`` (while mode) keeps parameters and AdamW moments sharded
+  per ``sharding.state_specs``: one ``all_gather_params`` per step outside
+  the per-rank loops gives the forward its full parameters, the gradient sum
+  goes back to shards through ``reduce_scatter_tree``, AdamW updates only the
+  shards, and clipping's global norm adds one scalar ``all_reduce`` per
+  class of sharding;
+* masked mode pays the W slots for its own rows, then ``all_reduce``s.
+
+Per-microbatch gathers (``fsdp=True``) are validated as in the reference and
+refused on a group of more than one rank (``NotImplementedError``).
 
 Every mode normalizes the summed gradient by the GLOBAL token count, so the
 update depends only on the union of microbatches, not on which rank computed
@@ -39,14 +52,27 @@ slot's rank sum with the rank's 0/1 weight as the scale, read from the device
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
+from repro_torch.dist.collectives import (
+    CommMeter,
+    all_gather_params,
+    all_reduce,
+    axis_groups,
+    axis_sizes,
+    broadcast,
+    reduce_scatter_tree,
+    ring_allreduce_tree,
+    spec_dims,
+)
+from repro_torch.dist.sharding import param_specs
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.convert import reference_ndims
+from repro_torch.models.convert import reference_ndims, reference_paths
 from repro_torch.optim import (
     AdamWConfig,
     SGDConfig,
@@ -59,7 +85,14 @@ from repro_torch.optim import (
     sgd_update,
 )
 
-__all__ = ["HeteroStepConfig", "init_train_state", "build_train_step"]
+__all__ = [
+    "HeteroStepConfig",
+    "init_train_state",
+    "build_train_step",
+    "broadcast_train_state",
+    "gather_train_state",
+    "shard_train_state",
+]
 
 
 # the axes of one process holding every rank (the reference's driver on one
@@ -77,9 +110,10 @@ class HeteroStepConfig:
     mode: str = "masked"  # "while" | "masked"
     alloc_axis: str = "data"  # mesh axis the allocation ranks live on
     # False: replicated params.  True: params sharded over fsdp_axes with
-    # per-microbatch gathers (masked mode only).  "gather": one gather per
-    # step outside the per-rank loops (while mode only).  On one shard both
-    # are the identity.
+    # per-microbatch gathers (masked mode only; refused on a group of more
+    # than one rank).  "gather": params AND optimizer state sharded, one
+    # gather per step outside the per-rank loops (while mode only).  On one
+    # shard both are the identity.
     fsdp: bool | str = False
     fsdp_axes: tuple[str, ...] = ("data",)
     optimizer: str = "adamw"  # "adamw" | "sgd"
@@ -216,21 +250,65 @@ def _masked_grads(model, params, inputs, targets, alloc, cfg, scfg):
 # ---------------------------------------------------------------------------
 
 
+def _axes(mesh) -> tuple[dict, dict]:
+    """``({axis: size}, {axis: group})`` of a mesh (a (1, 1) mesh of no group without one)."""
+    if mesh is None:
+        return {a: 1 for a in LOCAL_AXES}, {}
+    return axis_sizes(mesh), axis_groups(mesh)
+
+
+def _clock(device: torch.device) -> float:
+    """Host seconds after the device's queued work is done."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def _sharded_global_norm(grads, specs, groups, meter) -> torch.Tensor:
+    """The global norm of a tree of shards: each class of tensors sharded over
+    the same axes sums its squares locally, then over those axes' groups
+    (one scalar ``all_reduce`` per axis); replicated tensors count once."""
+    classes: dict = {}
+    for g, spec in zip(grads, specs, strict=True):
+        axes = tuple(ax for _, names in spec_dims(spec, g.ndim) for ax in names)
+        sq = torch.sum(torch.square(g.float()))
+        classes[axes] = sq if axes not in classes else classes[axes] + sq
+    total = None
+    for axes, sq in classes.items():  # insertion order: the same on every rank
+        for ax in axes:
+            sq = all_reduce(sq, groups[ax], meter)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
 def build_train_step(
     cfg: ModelConfig,
     scfg: HeteroStepConfig,
     lr_fn=None,
     opt_cfg: AdamWConfig | SGDConfig | None = None,
+    mesh=None,
 ):
     """Build ``step(state, batch) -> (state, metrics)``.
 
     ``batch``: ``{"inputs": (R, W, mb, S), "targets": ..., "alloc": (R,)}``,
     tensors on the parameters' device except ``alloc``, which the host reads
-    for the trip counts (numpy or a tensor).  The state is updated in place
-    (parameters, moments) and returned with ``step + 1``.  ``metrics``:
-    ``{"loss", "tokens", "grad_norm", "lr"}`` float32 device scalars; ``loss``
-    is the global token-weighted mean cross-entropy BEFORE the update."""
-    scfg.validate()
+    for the trip counts (numpy or a tensor); every process of a mesh passes
+    the whole batch and takes its own rank rows.  The state is updated in
+    place (parameters, moments) and returned with ``step + 1``; under
+    ``fsdp="gather"`` on a mesh it holds this process's shards
+    (:func:`shard_train_state`).  ``metrics``: ``{"loss", "tokens",
+    "grad_norm", "lr"}`` float32 device scalars; ``loss`` is the global
+    token-weighted mean cross-entropy BEFORE the update.  ``step.meter`` (a
+    ``CommMeter``) counts the ring's bytes and the seconds in collectives."""
+    sizes, groups = _axes(mesh)
+    scfg.validate(tuple(sizes))
+    n = sizes[scfg.alloc_axis]
+    if n > 1 and scfg.fsdp is True:
+        raise NotImplementedError(
+            "fsdp=True (per-microbatch gathers placed by GSPMD) has no multi-process form in the port; "
+            "use fsdp='gather' (while mode) or replicated parameters"
+        )
+    group = groups.get(scfg.alloc_axis)
     lr_fn = lr_fn or constant(scfg.lr)
     if scfg.optimizer == "adamw":
         ocfg = opt_cfg or AdamWConfig()
@@ -238,6 +316,62 @@ def build_train_step(
     else:
         ocfg = opt_cfg or SGDConfig()
         opt_update = sgd_update
+    ring = scfg.collective == "ring"
+    meter = CommMeter()
+    gather = scfg.mode == "while" and scfg.fsdp == "gather" and max(sizes.values()) > 1
+    if gather:
+        skeleton = transformer.Transformer(cfg, device="meta")
+        labels = reference_paths(skeleton, cfg)
+        pspecs = param_specs(skeleton, sizes, cfg, fsdp=True, fsdp_axes=scfg.fsdp_axes)
+        spec_of = dict(zip(labels, pspecs, strict=True))
+
+    def local_rows(batch, alloc):
+        """This process's block of rank rows (the reference's ``P(alloc_axis)``)."""
+        x, y = batch["inputs"], batch["targets"]
+        if n == 1:
+            return x, y, alloc
+        if x.shape[0] % n:
+            raise ValueError(
+                f"while-mode batch has R={x.shape[0]} rank rows, not divisible by "
+                f"mesh axis {scfg.alloc_axis!r} of size {n}"
+            )
+        r, i = x.shape[0] // n, mesh.get_local_rank(scfg.alloc_axis)
+        return x[i * r:(i + 1) * r], y[i * r:(i + 1) * r], alloc[i * r:(i + 1) * r]
+
+    def reduce(gsum, lsum, tsum, device):
+        """The cross-rank reduction of the local carry: the paper's plug-in point."""
+        if n == 1:
+            return gsum, lsum, tsum
+        t0 = _clock(device)
+        if ring and scfg.mode == "while":
+            gsum = ring_allreduce_tree(gsum, group, meter)
+        else:
+            gsum = [all_reduce(g, group, meter) for g in gsum]
+        lsum, tsum = all_reduce(lsum, group, meter), all_reduce(tsum, group, meter)
+        meter.seconds += _clock(device) - t0
+        return gsum, lsum, tsum
+
+    def gathered_grads(model, params, x, y, alloc, device):
+        """``fsdp="gather"``: one gather, the local loops over full parameters,
+        the gradient sum reduce-scattered back to shards."""
+        t0 = _clock(device)
+        shards = [p.data for p in params]
+        full = all_gather_params(dict(zip(labels, shards)), spec_of, groups, use_ring=ring, meter=meter)
+        meter.seconds += _clock(device) - t0
+        for p, f in zip(params, full.values()):
+            p.data = f
+        try:
+            gsum, lsum, tsum = _while_accum(model, params, x, y, alloc, cfg, scfg)
+        finally:
+            for p, sh in zip(params, shards):
+                p.data = sh
+        del full
+        t0 = _clock(device)
+        gsum = reduce_scatter_tree(dict(zip(labels, gsum)), spec_of, (scfg.alloc_axis,), groups,
+                                   use_ring=ring, meter=meter)
+        lsum, tsum = all_reduce(lsum, group, meter), all_reduce(tsum, group, meter)
+        meter.seconds += _clock(device) - t0
+        return list(gsum.values()), lsum, tsum
 
     def step(state, batch):
         alloc = batch["alloc"]
@@ -245,16 +379,23 @@ def build_train_step(
         _host_check_alloc(alloc, scfg.w_max)
         model = state["params"]
         params = list(model.parameters())
-        inputs, targets = batch["inputs"], batch["targets"]
-        if scfg.mode == "masked":
-            gsum, lsum, tsum = _masked_grads(model, params, inputs, targets, alloc, cfg, scfg)
+        device = params[0].device
+        inputs, targets, alloc = local_rows(batch, alloc)
+        if gather:
+            gsum, lsum, tsum = gathered_grads(model, params, inputs, targets, alloc, device)
+        elif scfg.mode == "masked":
+            gsum, lsum, tsum = reduce(*_masked_grads(model, params, inputs, targets, alloc, cfg, scfg), device)
         else:
-            # one shard: the cross-rank psum / ring of the reference is the identity
-            gsum, lsum, tsum = _while_accum(model, params, inputs, targets, alloc, cfg, scfg)
+            gsum, lsum, tsum = reduce(*_while_accum(model, params, inputs, targets, alloc, cfg, scfg), device)
         denom = torch.clamp(tsum, min=1.0)
         # in place where the sum is float32 already (it is ours): g.float() / denom
         grads = [g.div_(denom) if g.dtype == torch.float32 else g.float() / denom for g in gsum]
-        if scfg.clip_norm > 0.0:
+        if gather:
+            gnorm = _sharded_global_norm(grads, pspecs, groups, meter)
+            if scfg.clip_norm > 0.0:
+                scale = torch.clamp(scfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+                grads = [(g.float() * scale).to(g.dtype) for g in grads]
+        elif scfg.clip_norm > 0.0:
             grads, gnorm = clip_by_global_norm(grads, scfg.clip_norm)
         else:
             gnorm = global_norm(grads)
@@ -264,7 +405,60 @@ def build_train_step(
         metrics = {"loss": lsum / denom, "tokens": tsum, "grad_norm": gnorm, "lr": lr}
         return new_state, metrics
 
+    step.meter = meter
     return step
+
+
+# ---------------------------------------------------------------------------
+# placing the state on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _per_param(state: dict) -> list[torch.Tensor]:
+    """A train state's per-parameter tensors: the parameters, then each optimizer list."""
+    lists = [val for val in state["opt"].values() if isinstance(val, list)]
+    return [p.data for p in state["params"].parameters()] + [t for val in lists for t in val]
+
+
+def _set_per_param(state: dict, tensors: list[torch.Tensor]) -> None:
+    it = iter(tensors)
+    for p in state["params"].parameters():
+        p.data = next(it)
+    for key, val in state["opt"].items():
+        if isinstance(val, list):
+            state["opt"][key] = [next(it) for _ in val]
+
+
+def shard_train_state(state: dict, pspecs: list[tuple], mesh) -> None:
+    """In place: every parameter and moment becomes this process's shard of
+    it under ``pspecs`` (the moments take their parameter's spec).  A spec
+    entry of several axes cuts major axis first, as ``all_gather_params``
+    rebuilds it."""
+    tensors = _per_param(state)
+    shards = []
+    for t, spec in zip(tensors, pspecs * (len(tensors) // len(pspecs)), strict=True):
+        for dim, axes in spec_dims(spec, t.ndim):
+            for ax in axes:
+                t = torch.chunk(t, mesh.size(mesh.mesh_dim_names.index(ax)), dim=dim)[mesh.get_local_rank(ax)]
+        shards.append(t.clone())
+    _set_per_param(state, shards)
+
+
+def gather_train_state(state: dict, pspecs: list[tuple], mesh) -> None:
+    """In place: the inverse of :func:`shard_train_state` (one all-gather per
+    sharded dim and axis, over the mesh's groups)."""
+    tensors = _per_param(state)
+    specs = pspecs * (len(tensors) // len(pspecs))
+    keys = [str(i) for i in range(len(tensors))]
+    full = all_gather_params(dict(zip(keys, tensors)), dict(zip(keys, specs)), _axes(mesh)[1])
+    _set_per_param(state, list(full.values()))
+
+
+def broadcast_train_state(state: dict, group) -> None:
+    """In place: every tensor of the state becomes the group's rank 0's."""
+    scalars = [val for val in state["opt"].values() if not isinstance(val, list)]
+    for t in _per_param(state) + scalars + [state["step"]]:
+        broadcast(t, group)
 
 
 def _host_check_alloc(alloc, w_max: int) -> None:

@@ -1,9 +1,10 @@
 """Training CLI of the port — a thin argparse shim over ``repro_torch.runtime.driver.ElasticTrainer``.
 
 The flags are the reference's (``python -m repro.launch.train``) plus
-``--device``.  Timing is MEASURED (per-step wall clocks) by default, so the
-self-adaptive loop runs on real numbers; ``--hetero-gpus`` swaps in the
-simulated speed model.  Membership changes (paper fig. 11) are scripted
+``--device``, ``--dist-backend`` and ``--dist-init``.
+Timing is MEASURED (per-step wall clocks) by default, so the self-adaptive
+loop runs on real numbers; ``--hetero-gpus`` swaps in the simulated speed
+model.  Membership changes (paper fig. 11) are scripted
 with ``--events``, each ``kind@step:spec``: ``fail@8:3`` (worker 3 stops
 heartbeating at step 8), ``add@16:v100`` (a V100 joins),
 ``replace@24:0=v100`` (slot 0 swapped for a V100).  Every microbatch's
@@ -19,14 +20,27 @@ seeded 3-fault schedule (``--campaign-seed``).  ``--trace NAME_OR_PATH``
 replays a cluster trace: its machines at t=0 become the fleet and its
 joins/leaves the ``--events`` schedule, mapped onto ``--steps``.
 ``--trace-out``/``--metrics-out`` write the Perfetto trace and the metrics
-snapshot (``repro.obs.metrics/v1``).  The sharded multi-process step
-(``--fsdp``) is left out.
+snapshot (``repro.obs.metrics/v1``).
+
+One process per rank: under ``torchrun`` (``RANK``/``WORLD_SIZE`` in the
+environment) the CLI joins the process group (``--dist-init``, default
+``env://``) with ``--dist-backend`` (default: ``nccl`` on ``cuda``, ``gloo``
+on ``cpu``), and the driver runs the step on a mesh of the first n
+processes, reducing the gradients over the paper's Ring AllReduce.
+``--fsdp gather`` (with ``--mode while``) keeps parameters and
+AdamW moments sharded over them.  Several ranks on one card need
+``--dist-backend gloo``: NCCL refuses two ranks on one card.
 
 Example (on a card; add ``--device cpu`` for the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --smoke \\
       --steps 8 --total-micro 8 --micro-bs 1 --seq 16 --mode while \\
       --hetero-gpus v100,rtx2080ti,rtx2080ti,gtx1080ti --events "replace@6:3=v100" \\
       --faults "slow@3:1*3~2" --ckpt-dir ck --ckpt-every 2
+Four processes on the CPU, state sharded, worker 3 failing at step 3:
+  PYTHONPATH=src torchrun --standalone --nproc_per_node 4 -m repro_torch.launch.train --arch smollm-360m \\
+      --smoke --device cpu --steps 6 --total-micro 8 --micro-bs 1 --seq 16 --mode while \\
+      --fsdp gather --steps-per-epoch 2 --hetero-gpus v100,rtx2080ti,rtx2080ti,gtx1080ti \\
+      --events fail@3:3
 """
 
 from __future__ import annotations
@@ -35,6 +49,9 @@ import argparse
 import json
 import os
 
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import join_process_group
 from repro_torch.runtime.driver import DriverConfig, ElasticTrainer
 from repro_torch.runtime.elastic import parse_events
 from repro_torch.traces import bundled_trace, faults_spec, load_trace, parse_faults, sample_faults, to_events, to_fleet
@@ -58,6 +75,13 @@ def parse_args(argv=None):
         choices=["masked", "while"],
         help="step mode: 'masked' (every slot paid, weighted 0/1) or 'while' (per-rank trip counts; the "
         "paper's fast path)",
+    )
+    ap.add_argument(
+        "--fsdp",
+        default="none",
+        choices=["none", "gather"],
+        help="'gather' shards params+optimizer state over the data axis and all-gathers params once per "
+        "step (while-mode ZeRO; legal with divergent trip counts because the collective count is uniform)",
     )
     ap.add_argument("--hetero-gpus", default=None, help="comma GPU names for simulated speeds")
     ap.add_argument("--steps-per-epoch", type=int, default=4, help="aggregations per 'epoch' (controller cadence)")
@@ -90,12 +114,18 @@ def parse_args(argv=None):
     ap.add_argument("--trace-out", default=None, help="write a Perfetto trace-event JSON")
     ap.add_argument("--metrics-out", default=None, help="write a metrics snapshot JSON (repro.obs.metrics/v1)")
     ap.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend under torchrun (default: nccl on cuda, gloo on cpu)")
+    ap.add_argument("--dist-init", default="env://", help="init_process_group's init_method under torchrun")
     args = ap.parse_args(argv)
     if args.policy == "static" and not args.static_ratio:
         ap.error(
             "--policy static requires --static-ratio (e.g. --static-ratio 6,4); "
             "without it the run would silently train with an equal allocation"
         )
+    if args.fsdp == "gather" and args.mode != "while":
+        ap.error("--fsdp gather pairs with --mode while (one gather per step outside "
+                 "the per-rank loops); masked mode has no gather to hoist")
     if args.events:
         try:
             parse_events(args.events)
@@ -128,6 +158,20 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    joined = "RANK" in os.environ and "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if joined:
+        join_process_group(args.device, args.dist_backend, args.dist_init)
+    try:
+        result = _run(args)
+        if joined:
+            dist.barrier()  # no rank tears its connections down while another still uses them
+    finally:
+        if joined:
+            dist.destroy_process_group()
+    return result
+
+
+def _run(args) -> dict:
     cfg = DriverConfig(
         arch=args.arch,
         smoke=args.smoke,
@@ -140,6 +184,7 @@ def main(argv=None) -> dict:
         policy=args.policy,
         static_ratio=args.static_ratio,
         mode=args.mode,
+        fsdp=args.fsdp,
         hetero_gpus=args.hetero_gpus,
         steps_per_epoch=args.steps_per_epoch,
         dataset_size=args.dataset_size,
@@ -156,6 +201,8 @@ def main(argv=None) -> dict:
     )
     result = ElasticTrainer(cfg).run()
     result["device"] = args.device
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return result  # rank 0 reports
     print(json.dumps(result, indent=1))
     if args.json_out:
         os.makedirs(os.path.dirname(args.json_out) or ".", exist_ok=True)

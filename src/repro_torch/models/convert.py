@@ -40,6 +40,7 @@ __all__ = [
     "params_from_jax",
     "params_to_jax",
     "reference_ndims",
+    "reference_paths",
     "train_state_from_jax",
     "train_state_spec",
     "train_state_to_jax",
@@ -147,6 +148,25 @@ def reference_ndims(params: Transformer, cfg: ModelConfig) -> list[int]:
         p.ndim + (name.startswith("layers.") and int(name.split(".")[1]) in body)
         for name, p in params.named_parameters()
     ]
+
+
+def reference_paths(params: Transformer, cfg: ModelConfig) -> list[str]:
+    """Each parameter's leaf in the reference's tree as ``jax.tree_util.keystr``
+    writes it, in ``named_parameters`` order; a layer of the repeating body
+    adds its index into the stacked leaf (``layers.3.mixer.wq`` of a
+    one-layer pattern is ``['body']['layer0']['mixer']['wq'][3]``).  The
+    collectives name a parameter by it in their errors."""
+    slots = list(_layer_slots(cfg))
+    out = []
+    for name, _ in params.named_parameters():
+        parts = name.split(".")
+        if parts[0] != "layers":
+            out.append("".join(f"[{p!r}]" for p in parts))
+            continue
+        group, key, rep = slots[int(parts[1])]
+        path = "".join(f"[{p!r}]" for p in (group, key, *parts[2:]))
+        out.append(path if rep is None else f"{path}[{rep}]")
+    return out
 
 
 def train_state_from_jax(state: dict, cfg: ModelConfig, device: str | torch.device = "cuda") -> dict:

@@ -68,16 +68,32 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Ten
     return (y * (1.0 + gain.float())).to(x.dtype)
 
 
+class _Logistic(torch.autograd.Function):
+    """``jax.nn.sigmoid`` with ``lax.logistic``'s derivative rule."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid`` as the reference computes it: ``1 / (1 + exp(-x))``
     with each of the four operations rounded to x's dtype
     (``jax/_src/lax/lax.py`` ``logistic_impl``), four kernels where
     ``torch.sigmoid`` is one.  In bf16 ``torch.sigmoid`` rounds once: the two
     differ in about a third of bf16 outputs, which made bf16 RWKV part from
-    the reference further than bf16 parts from float32.  Serving only: where
-    exp(-x) overflows, autograd's derivative of this chain is inf * 0, so
-    training through it needs ``logistic``'s own JVP rule, s * (1 - s)."""
-    return torch.reciprocal(1 + torch.exp(-x))
+    the reference further than bf16 parts from float32.  Its gradient is
+    ``logistic``'s own rule, ``g * (s * (1 - s))`` rounded in that order:
+    autograd through the four operations would give ``inf * 0`` where
+    exp(-x) overflows."""
+    return _Logistic.apply(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

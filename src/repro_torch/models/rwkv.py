@@ -1,7 +1,8 @@
-"""RWKV6 ("Finch") block for serving: time-mix with data-dependent decay + channel-mix.
+"""RWKV6 ("Finch") block: time-mix with data-dependent decay + channel-mix.
 
-The port of ``repro.models.rwkv`` at the parts serving needs (``rwkv_train``
-waits for a later training slice; ROADMAP.md).  Three routes for the WKV recurrence:
+The port of ``repro.models.rwkv``: the training block (``rwkv_train``, which
+takes the ``chunked`` route as the reference's does), prefill and decode.
+Three routes for the WKV recurrence:
 
 * ``scan``    — the sequential recurrence, one token at a time (the oracle,
   and every decode step);
@@ -32,6 +33,7 @@ __all__ = [
     "init_rwkv_cache",
     "rwkv_decode",
     "rwkv_prefill",
+    "rwkv_train",
     "wkv_chunked",
     "wkv_scan",
 ]
@@ -120,7 +122,10 @@ def wkv_chunked(r, k, v, w, u, s0=None, chunk: int = 128):
       y_t   = r_t . diag(e^{L_{t-1}}) S0 + sum_{s<t} (r_t . e^{L_{t-1}-L_s} k_s) v_s + (r_t . u k_t) v_t
       S_end = diag(e^{L_{T-1}}) S0 + sum_s diag(e^{L_{T-1}-L_s}) k_s v_s^T
     The scores above the diagonal may overflow; ``torch.where`` drops them
-    (a multiply by a 0/1 mask would turn inf into NaN)."""
+    (a multiply by a 0/1 mask would turn inf into NaN).  Under autograd the
+    gradient into a dropped score is 0 and the einsums' backward reads only
+    the finite factors ``q`` and ``kk``, so the gradients stay finite at the
+    strongest decay the model allows (``tests/test_torch_rwkv.py``)."""
     B, T, H, D = r.shape
     chunk = min(chunk, T)
     if T % chunk:
@@ -219,6 +224,16 @@ def _channel_mix(p: RWKV, x, last_x):
     xr = x + sx * p.cm_maa_r.to(x.dtype)
     k = torch.square(torch.relu(linear(xk, p.cm_key)))
     return sigmoid(linear(xr, p.cm_recept)) * linear(k, p.cm_value), x[:, -1:]
+
+
+def rwkv_train(p: RWKV, x: torch.Tensor, cfg: ModelConfig, wkv_impl: str = "chunked") -> torch.Tensor:
+    """The full RWKV6 block for training, time mix then channel mix, each after
+    its LayerNorm.  It adds its own two residuals, as the reference's does:
+    the caller adds none.  x: (B, T, d) -> (B, T, d)."""
+    tm_out, _, _ = _time_mix(p, layernorm(x, p.ln1, cfg.norm_eps), cfg, None, None, wkv_impl)
+    x = x + tm_out
+    cm_out, _ = _channel_mix(p, layernorm(x, p.ln2, cfg.norm_eps), None)
+    return x + cm_out
 
 
 def rwkv_prefill(p: RWKV, x: torch.Tensor, cfg: ModelConfig, lengths: torch.Tensor, wkv_impl: str = "chunked"):

@@ -9,7 +9,7 @@ until their slice.
 
 Public entry points:
   init_params / compute_copy            parameters (seeded) and their compute-dtype copy
-  forward / loss_fn                     training (attention layers; RWKV training waits)
+  forward / loss_fn                     training
   init_cache / prefill / decode_step    serving
 """
 
@@ -220,7 +220,7 @@ def _ffn_half(layer: Block, h: torch.Tensor, mix: torch.Tensor, cfg: ModelConfig
 
 def _train_layer(layer: Block, h: torch.Tensor, cfg: ModelConfig, attn_impl: str) -> torch.Tensor:
     if layer.spec.kind == "rwkv":
-        raise NotImplementedError("rwkv_train waits for a later training slice of the port")
+        return rwkv_lib.rwkv_train(layer.rwkv, h, cfg)  # the block adds its own residuals
     mix = attn_lib.attention_train(layer.mixer, _norm(h, layer.norm1, cfg), cfg, layer.spec.attn_type, impl=attn_impl)
     return _ffn_half(layer, h, mix, cfg)
 
@@ -237,7 +237,8 @@ def forward(
     the reference checkpoints each layer: its backward keeps one layer's
     activations at a time.  ``remat_policy="minimal"`` (the reference saves
     the matmul outputs) recomputes everything too: the values are the same.
-    RWKV layers raise: their training waits for a later slice."""
+    RWKV layers run ``rwkv.rwkv_train`` with the ``chunked`` WKV, as the
+    reference trains them."""
     h = _embed_in(params, inputs, cfg)
     remat = cfg.remat and cfg.remat_policy != "none"
     for layer in params.layers:

@@ -30,9 +30,21 @@ heterogeneous-step loop behind ``python -m repro_torch.launch.train``.
 * **Observability.** ``trace_out``/``metrics_out`` write the Perfetto trace
   and the metrics snapshot of ``obs.TrainObs`` on the virtual clock of the
   modelled aggregation times.
-
-One process holds every rank (the reference's single-device (1, 1) mesh),
-so there is no state to reshard on a rebuild.
+* **One process per rank.** Outside a process group one process holds every
+  rank (the reference's single-device (1, 1) mesh).  Inside one (the train
+  CLI under ``torchrun``) every process runs this loop, and the mesh is the
+  reference's: ``(n, 1)`` over the first n processes when ``1 < n <= world``,
+  else ``(1, 1)``; the processes past the mesh sit the step out, and the
+  gradient reduce over the mesh is the paper's Ring AllReduce.  A
+  membership change rebuilds the mesh and re-places the state, as the
+  reference's ``_reshard_state`` does: under ``fsdp="gather"`` it is gathered
+  on the old mesh, broadcast from rank 0 to the new mesh's processes that
+  did not hold it, and sharded on the new one.  Every process takes the same
+  decisions: rank 0's loss, tokens and step wall are broadcast before
+  anything reads them, and each epoch checks that every process holds the
+  same allocation, fleet and position.  Rank 0 alone writes checkpoints (the
+  full tree, gathered first under ``fsdp="gather"``), the trace and the
+  metrics; every process restores from the same files and takes its shards.
 
 Epoch semantics: one "epoch" is one pass over the dataset —
 ``steps_per_epoch`` aggregations by default (``dataset_size`` overrides).
@@ -46,9 +58,11 @@ import dataclasses
 import json
 import os
 import time
+import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager, as_train_state
 from repro_torch.configs import get_config, smoke_config
@@ -63,8 +77,13 @@ from repro_torch.core.hetero import normalize_gpu
 from repro_torch.data import HeteroBatcher, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.dist import HeteroStepConfig, build_train_step, init_train_state
+from repro_torch.dist.collectives import CommMeter, axis_sizes, ring_allreduce_bytes
+from repro_torch.dist.hetero_step import broadcast_train_state, gather_train_state, shard_train_state
+from repro_torch.dist.sharding import param_specs
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import train_state_spec, train_state_to_jax
+from repro_torch.models.transformer import Transformer
 from repro_torch.obs import TrainObs
 from repro_torch.optim import warmup_cosine
 from repro_torch.runtime.elastic import (
@@ -85,16 +104,6 @@ __all__ = ["DriverConfig", "ElasticTrainer"]
 _T_C_SIM = 0.1
 
 
-def ring_allreduce_bytes(payload_bytes: int, n_workers: int) -> int:
-    """Bytes one worker sends per ring allreduce of a ``payload_bytes`` tree
-    (``repro.dist.collectives.ring_allreduce_bytes``): the bandwidth-optimal
-    ring moves ``2 * (n-1)/n`` of the payload through each link.  The obs
-    layer reports it as ``train.collective_bytes``."""
-    if n_workers <= 1:
-        return 0
-    return int(2 * (n_workers - 1) * payload_bytes // n_workers)
-
-
 @dataclasses.dataclass(frozen=True)
 class DriverConfig:
     """Everything the CLI can say, as data (the reference's fields plus ``device``)."""
@@ -110,6 +119,7 @@ class DriverConfig:
     policy: str = "adaptive"  # "adaptive" | "equal" | "static"
     static_ratio: str | None = None
     mode: str = "masked"  # "masked" | "while"
+    fsdp: str = "none"  # "none" | "gather"
     hetero_gpus: str | None = None  # comma GPU names -> simulated timing
     steps_per_epoch: int = 4  # aggregations per dataset pass (epoch)
     dataset_size: int = 0  # 0 -> total_micro * micro_bs * steps_per_epoch
@@ -145,6 +155,10 @@ class ElasticTrainer:
             raise ValueError(f"policy must be adaptive/equal/static, got {cfg.policy!r}")
         if cfg.policy == "static" and not cfg.static_ratio:
             raise ValueError("policy='static' requires static_ratio (e.g. '6,4')")
+        if cfg.fsdp not in ("none", "gather"):
+            raise ValueError(f"fsdp must be 'none' or 'gather', got {cfg.fsdp!r}")
+        if cfg.fsdp == "gather" and cfg.mode != "while":
+            raise ValueError("fsdp='gather' pairs with mode='while'")
         if cfg.heartbeat_patience < 1:
             raise ValueError(
                 "heartbeat_patience must be >= 1 — with zero patience the failure "
@@ -152,6 +166,10 @@ class ElasticTrainer:
             )
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+        # the process group (the train CLI joins it under torchrun); without one, one process holds every rank
+        self.rank, self.world = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+        # host-side agreement (rank 0's step scalars, the per-epoch check) rides its own gloo group
+        self._ctrl = dist.new_group(backend="gloo") if self.world > 1 else None
         self.model_cfg = model_cfg or (smoke_config(cfg.arch, seq=cfg.seq) if cfg.smoke else get_config(cfg.arch))
         self.C = cfg.total_micro
         self.seq_len = cfg.seq if cfg.smoke else self.model_cfg.max_seq
@@ -214,10 +232,13 @@ class ElasticTrainer:
         like_scfg = HeteroStepConfig(w_max=1, micro_bs=cfg.micro_bs, seq_len=self.seq_len, optimizer="adamw")
         self.state = state or init_train_state(self.model_cfg, like_scfg, cfg.seed, device=self.device)
         # observability: virtual-clock spans/metrics, no-op unless requested
-        self.obs = TrainObs(cfg.trace_out, cfg.metrics_out)
+        self.obs = TrainObs(cfg.trace_out, cfg.metrics_out) if self.rank == 0 else TrainObs(None, None)
         self._param_bytes = sum(p.numel() * p.element_size() for p in self.state["params"].parameters())
         if self.mgr and cfg.resume and self.mgr.latest_step() is not None:
             self._restore()
+        # the processes on the mesh hold the state: every process, whole, until the first mesh
+        self.mesh, self._meshes, self._mesh_size, self._pspecs = None, {}, self.world, None
+        self._meters: list[CommMeter] = []
         self._build()
 
     # -- membership-dependent construction ------------------------------------
@@ -235,9 +256,20 @@ class ElasticTrainer:
             seq_len=self.seq_len,
             mode=cfg.mode,
             alloc_axis="data",
+            fsdp="gather" if cfg.fsdp == "gather" else False,
+            fsdp_axes=("data",),
             optimizer="adamw",
+            collective="ring",  # the paper's reduce; the identity on one process
         )
-        self.step_fn = build_train_step(self.model_cfg, self.scfg, lr_fn=warmup_cosine(cfg.lr, 10, cfg.steps))
+        if dist.is_initialized():
+            shape = (n, 1) if 1 < n <= self.world else (1, 1)
+            if shape not in self._meshes:  # building a mesh's groups is collective: every process, same order
+                self._meshes[shape] = make_test_mesh(shape, ("data", "model"), self.device.type)
+            if self._meshes[shape] is not self.mesh:
+                self._reshard_state(self._meshes[shape], shape[0])
+        self.step_fn = build_train_step(self.model_cfg, self.scfg, lr_fn=warmup_cosine(cfg.lr, 10, cfg.steps),
+                                        mesh=self.mesh if self.member else None)
+        self._meters.append(self.step_fn.meter)
         self.batcher = HeteroBatcher(self.dataset, n, cfg.micro_bs, self.w_max, seed=cfg.seed)
         self._rebuild_monitoring()
 
@@ -257,6 +289,53 @@ class ElasticTrainer:
             # inner source is: injected stragglers ride the real path
             self.timing = FaultyTimingSource(self.timing, self.injector, lambda: self.step_i)
         self.straggler = StragglerMonitor(n)
+
+    # -- placement on the mesh ----------------------------------------------------
+
+    @property
+    def member(self) -> bool:
+        """Does this process run the step (is it on the mesh)?"""
+        return self.rank < self._mesh_size
+
+    @property
+    def comm(self) -> CommMeter:
+        """This process's ring bytes, ring reduce steps and collective seconds over every step function it built."""
+        return CommMeter(*(sum(getattr(m, f.name) for m in self._meters) for f in dataclasses.fields(CommMeter)))
+
+    def _reshard_state(self, mesh, members: int) -> None:
+        """Place the state for a new mesh over the first ``members`` processes:
+        gather it on the old mesh where it was sharded, broadcast it from rank
+        0 to the new mesh's processes that did not hold it, and take this
+        process's shards where ``fsdp="gather"`` shards it."""
+        if self._pspecs is not None:  # this process holds shards of the old mesh
+            gather_train_state(self.state, self._pspecs, self.mesh)
+            self._pspecs = None
+        if self.rank < members and members > self._mesh_size:
+            broadcast_train_state(self.state, mesh.get_group("data"))
+        self.mesh, self._mesh_size = mesh, members
+        if self.cfg.fsdp == "gather" and members > 1 and self.member:
+            skeleton = Transformer(self.model_cfg, device="meta")
+            self._pspecs = param_specs(skeleton, axis_sizes(mesh), self.model_cfg, fsdp=True)
+            shard_train_state(self.state, self._pspecs, mesh)
+
+    def _from_rank0(self, *values: float) -> list[float]:
+        """Rank 0's values on every process (the controller's inputs must agree bit for bit)."""
+        if self._ctrl is None:
+            return list(values)
+        t = torch.tensor(values, dtype=torch.float64)
+        dist.broadcast(t, src=0, group=self._ctrl)
+        return t.tolist()
+
+    def _check_agreement(self) -> None:
+        """Every process holds the same allocation, fleet and position (once an epoch)."""
+        if self._ctrl is None:
+            return
+        mine = json.dumps([np.asarray(self.alloc).tolist(), self.gpus, self.step_i, self.epoch, self._event_idx])
+        h = torch.tensor([zlib.crc32(mine.encode())], dtype=torch.int64)
+        every = [torch.zeros_like(h) for _ in range(self.world)]
+        dist.all_gather(every, h, group=self._ctrl)
+        if any(int(x) != int(h) for x in every):
+            raise RuntimeError(f"rank {self.rank}: the processes disagree on the allocation/fleet/position {mine}")
 
     # -- checkpoints ---------------------------------------------------------------
 
@@ -306,10 +385,16 @@ class ElasticTrainer:
         self.ckpt_log.append({"op": op, "step": self.step_i, "seconds": time.perf_counter() - t0, "bytes": size})
 
     def _save(self) -> None:
+        """Rank 0 writes the full tree; under ``fsdp="gather"`` the mesh gathers it first."""
         self._sync()
         t0 = time.perf_counter()
-        self.mgr.save(self.step_i, train_state_to_jax(self.state, self.model_cfg), metadata=self._metadata())
-        self._log_io("save", t0)
+        if self._pspecs is not None:
+            gather_train_state(self.state, self._pspecs, self.mesh)
+        if self.rank == 0:
+            self.mgr.save(self.step_i, train_state_to_jax(self.state, self.model_cfg), metadata=self._metadata())
+            self._log_io("save", t0)
+        if self._pspecs is not None:
+            shard_train_state(self.state, self._pspecs, self.mesh)
         self.obs.on_checkpoint(self.step_i)
 
     def _restore(self) -> None:
@@ -553,17 +638,20 @@ class ElasticTrainer:
                 "alloc": batch_np["alloc"],
             }
             t0 = time.perf_counter()
-            self.state, metrics = self.step_fn(self.state, batch)
-            loss = metrics["loss"].item()  # host sync: the wall clock covers the device work
+            loss = tokens = grad_norm = 0.0
+            if self.member:
+                self.state, metrics = self.step_fn(self.state, batch)
+                loss = metrics["loss"].item()  # host sync: the wall clock covers the device work
+                tokens, grad_norm = float(metrics["tokens"]), float(metrics["grad_norm"])
             wall = time.perf_counter() - t0
+            loss, tokens, grad_norm, wall = self._from_rank0(loss, tokens, grad_norm, wall)
             self.timing.record_step(wall, batch_np["alloc"])
             self.losses.append(loss)
             self.step_i += 1
             self.agg_index += 1
             steps_run += 1
-            tokens = float(metrics["tokens"])
             self.step_log.append({"step": self.step_i, "loss": loss, "alloc": np.asarray(batch_np["alloc"]).tolist(),
-                                  "wall_s": wall, "tokens": tokens})
+                                  "wall_s": wall, "tokens": tokens, "grad_norm": grad_norm})
             # the metadata (controller state_dict + log tail) is serialized
             # only on steps that save
             if self.mgr and self.mgr.is_due(self.step_i):
@@ -576,6 +664,7 @@ class ElasticTrainer:
     def _finish_epoch(self, steps_run: int, n_agg: int) -> None:
         """Epoch boundary: read the timing source, update the controller
         (Alg. 1 steps 1-3), advance the data position."""
+        self._check_agreement()
         alloc = np.asarray(self.alloc)
         complete = self.simulated or self._timing_from_agg == 0
         if self.timing.ready and complete:
@@ -660,5 +749,5 @@ class ElasticTrainer:
         }
 
     def _log(self, msg: str) -> None:
-        if self.cfg.verbose:
+        if self.cfg.verbose and self.rank == 0:
             print(msg, flush=True)

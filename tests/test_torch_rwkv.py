@@ -9,6 +9,11 @@ the model (1e-5 for one layer, 1e-4 for a whole model's logits) and of
 sequential one sum in other orders, with exponentials of up to 64 in
 between).
 
+Training: ``loss_fn`` and its gradients through ``rwkv_train`` against
+``jax.grad`` of the reference's (1e-5), ``layers.sigmoid``'s gradient where
+exp(-x) overflows, the chunked WKV form's gradients at the strongest decay,
+and the train CLI against the JAX CLI.
+
 JAX is imported inside the ``J`` fixture only, so the ``gpu`` tests, which
 hold the CUDA ``rwkv6_scan`` against its plain version on the card, also run
 where JAX is not installed; they skip on a host without a card.
@@ -518,6 +523,122 @@ def test_cli_serves_rwkv6_on_cpu():
     )
     out = json.loads(res.stdout)
     assert out["arch"] == f"{ARCH}-smoke" and out["completed"] == out["requests"] == 3
+
+
+# ---------------------------------------------------------------------------
+# training: rwkv_train, sigmoid's derivative rule, the chunked form's gradients
+# ---------------------------------------------------------------------------
+
+
+def _flat_grads(J, tree):
+    return {J.jax.tree_util.keystr(path): np.asarray(leaf) for path, leaf in
+            J.jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def test_loss_and_gradients_match_jax_grad(J, model):
+    """``loss_fn`` on the float32 smoke config (two RWKV6 layers, chunk 16,
+    LayerNorm gains and biases perturbed): the loss and every gradient
+    against ``jax.grad`` of the reference's, at 1e-5 (rtol and atol, the
+    training tests' tolerance)."""
+    jcfg, tcfg, jp, tp = model
+    rng = np.random.default_rng(11)
+    x = rng.integers(0, jcfg.vocab_size, (2, 32)).astype(np.int32)
+    y = rng.integers(0, jcfg.vocab_size, (2, 32)).astype(np.int32)
+    jbatch = {"inputs": J.jnp.asarray(x), "targets": J.jnp.asarray(y)}
+    (jloss, _), jgrad = J.jax.jit(J.jax.value_and_grad(lambda p, b: J.tf.loss_fn(p, b, jcfg), has_aux=True))(jp, jbatch)
+    params = [p.requires_grad_(True) for p in tp.parameters()]
+    try:
+        tloss, _ = ttf.loss_fn(tp, {"inputs": _t(x).long(), "targets": _t(y).long()}, tcfg)
+        tgrad = torch.autograd.grad(tloss, params)
+    finally:
+        tp.requires_grad_(False)
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss), rtol=TOL_LAYER, atol=TOL_LAYER)
+    from repro_torch.models.convert import _tree_from_named
+
+    names = [n for n, _ in tp.named_parameters()]
+    got = _flat_grads(J, _tree_from_named({n: g.numpy() for n, g in zip(names, tgrad)}, tcfg))
+    want = _flat_grads(J, jgrad)
+    assert got.keys() == want.keys()
+    for key, w in want.items():
+        assert np.isfinite(got[key]).all(), key
+        np.testing.assert_allclose(got[key], w, rtol=TOL_LAYER, atol=TOL_LAYER, err_msg=key)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sigmoid_gradient_is_logistic_s_rule_where_exp_overflows(J, dtype):
+    """At |x| = 100 exp(-x) overflows (float32 and bf16 alike): the gradient
+    is finite and equals s * (1 - s), bit for bit with ``jax.grad`` of
+    ``jax.nn.sigmoid``; so does the value."""
+    from repro_torch.models.layers import sigmoid
+
+    xs = np.array([-100.0, -30.0, -3.0, 0.0, 0.5, 30.0, 100.0], np.float32)
+    x = torch.from_numpy(xs).to(getattr(torch, dtype)).requires_grad_(True)
+    s = sigmoid(x)
+    (g,) = torch.autograd.grad(s.sum(), x)
+    assert torch.isfinite(g).all() and torch.isfinite(s).all()
+    assert torch.equal(g, s.detach() * (1 - s.detach()))
+    jx = J.jnp.asarray(xs).astype(dtype)
+    jg = J.jax.vmap(J.jax.grad(J.jax.nn.sigmoid))(jx)
+    np.testing.assert_array_equal(g.float().numpy(), np.asarray(jg, np.float32))
+    np.testing.assert_array_equal(s.detach().float().numpy(), np.asarray(J.jax.nn.sigmoid(jx), np.float32))
+
+
+@pytest.mark.parametrize("chunk", [16, 32])  # the smoke config's chunk and rwkv6-1.6b's
+def test_wkv_chunked_gradients_are_finite_at_the_strongest_decay(chunk):
+    """Every step's decay at the model's clamp, e^-4 (``_time_mix``): the
+    above-diagonal scores overflow in the forward and are dropped; the
+    gradients of r, k, v, w, u and s0 are finite and equal the sequential
+    scan's (autograd through ``wkv_scan``) within the scan tolerance."""
+    r, k, v, w, u, s0 = _scan_inputs(1, 64, 2, 16, CLAMP, seed=5, w_max=CLAMP)
+    grads = {}
+    for name, fn in (("chunked", lambda *a: trwkv.wkv_chunked(*a, chunk=chunk)), ("scan", trwkv.wkv_scan)):
+        ins = [_t(a).requires_grad_(True) for a in (r, k, v, w, u, s0)]
+        y, s_end = fn(*ins)
+        assert torch.isfinite(y).all() and torch.isfinite(s_end).all()
+        grads[name] = torch.autograd.grad((y * 0.7).sum() + (s_end * 0.3).sum(), ins)
+    for got, want in zip(grads["chunked"], grads["scan"]):
+        assert torch.isfinite(got).all()
+        scale = want.abs().max().item()
+        np.testing.assert_allclose(got.numpy() / scale, want.numpy() / scale, rtol=TOL_SCAN, atol=TOL_SCAN)
+
+
+def test_model_gradients_are_finite_with_every_decay_at_the_clamp(model):
+    """Through the whole model, with ``decay_base`` high enough that every
+    token's decay sits at the clamp: the loss and every gradient are finite."""
+    _, tcfg, _, tp = model
+    tp = params_from_jax(params_to_jax(tp, tcfg), tcfg, device="cpu")
+    with torch.no_grad():
+        for layer in tp.layers:
+            layer.rwkv.decay_base.fill_(10.0)  # exp(10) >> 4: w = e^-4 everywhere
+    tp.requires_grad_(True)
+    x = torch.from_numpy(np.random.default_rng(2).integers(0, tcfg.vocab_size, (2, 32)))
+    loss, _ = ttf.loss_fn(tp, {"inputs": x, "targets": x.roll(-1, 1)}, tcfg)
+    grads = torch.autograd.grad(loss, list(tp.parameters()))
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
+
+
+TRAIN_CLI = ["--arch", ARCH, "--smoke", "--seq", "32", "--steps-per-epoch", "2", "--total-micro", "4", "--micro-bs",
+             "1", "--n-workers", "2", "--hetero-gpus", "v100,gtx1080ti", "--mode", "while"]
+
+
+def test_train_cli_gives_the_jax_cli_s_losses_and_allocations(J, tmp_path):
+    """``--arch rwkv6-1.6b --smoke --device cpu`` from the reference's initial
+    state (its CLI's checkpoint at step 0) gives the JAX CLI's first and last
+    loss (1e-5) and its allocation trajectory over 4 steps."""
+    from repro.launch.train import main as jax_main
+    from repro_torch.launch.train import main
+
+    ck = str(tmp_path / "ck")
+    jax_main(TRAIN_CLI + ["--steps", "0", "--ckpt-dir", ck])
+    want = jax_main(TRAIN_CLI + ["--steps", "4"])
+    got = main(TRAIN_CLI + ["--steps", "4", "--device", "cpu", "--ckpt-dir", ck, "--resume"])
+    assert got["arch"] == want["arch"] == f"{ARCH}-smoke"
+    for key in ("first_loss", "last_loss"):
+        np.testing.assert_allclose(got[key], want[key], rtol=TOL_LAYER, err_msg=key)
+    assert np.isfinite(got["last_loss"]) and got["last_loss"] < got["first_loss"]
+    for key in ("steps", "final_allocation", "gpus", "timing"):
+        assert got[key] == want[key], key
+    assert [e["alloc"] for e in got["epoch_log"]] == [e["alloc"] for e in want["epoch_log"]]
 
 
 # ---------------------------------------------------------------------------
