@@ -14,7 +14,10 @@ nonzero exit and no result line, if anything is wrong:
    cases of ``tests/test_kernels.py`` (window, softcap, q_offset, an empty
    slot, shuffled page tables, int8 pools), each within its stated
    tolerance; flash also at a 2048-token prompt with smollm's heads, at every
-   head dim 16..256 and on ragged Sq/Sk off its 64-row tiles.  The paged
+   head dim 16..256 and on ragged Sq/Sk off its 64-row tiles; both kernels
+   at the dense family's shapes (``DENSE_FLASH_CASES``,
+   ``DENSE_PAGED_CASES``: gemma-7b's int8 pools at head_dim 256, yi-34b's
+   group of 7, gemma3-27b's 1024-token window, musicgen-large's MHA).  The paged
    kernel gives the same bits on repeated calls at the serving shape and at
    paged_scaling's (below), called at the two shapes in turn.
 3. Flash serve: ``ServeEngine(smollm-360m, attn_impl="flash")`` at full width
@@ -39,11 +42,12 @@ nonzero exit and no result line, if anything is wrong:
    and depth (1,599,868,928 parameters, seeded random bf16 weights) on the
    same workload; all requests complete, ``rwkv6_scan`` is launched 24 times
    per prefill, and a profile of steady decode ticks gives the device's busy
-   share; the workload and the ticks again with ``torch.sigmoid``/``F.silu``
-   in place of the port's step-by-step bf16 rounding give that rounding's
-   cost in tok/s and host ms per tick.  Before it, every workload prompt's prefill logits through the
-   kernel match the plain sequential scan's in float32 compute (within 1e-3
-   of max |logit|); in bf16 the three routes are logged against each other
+   share; steady ticks again with ``torch.sigmoid``/``F.silu`` in place of
+   the port's step-by-step bf16 rounding give that rounding's cost in
+   decode tok/s and host ms per tick.  Before it, the prefill logits of
+   every 4th workload prompt (``RWKV_CHECK_EVERY``) through the kernel
+   match the plain sequential scan's in float32 compute (within 1e-3 of
+   max |logit|); in bf16 the three routes are logged against each other
    and against the float32 scan on the same weights.
 7. Accumulation kernel: ``weighted_accum`` against its plain version on the
    ``tests/test_kernels.py`` cases, a float32 accumulator with a bfloat16
@@ -56,7 +60,8 @@ nonzero exit and no result line, if anything is wrong:
    and in place: every tensor bit-equal, one launch per (acc, g) type group
    and table, every nonempty tensor counted.
 8. Train: ``ElasticTrainer`` (the train CLI's driver) trains smollm-360m at
-   full width and depth (random weights from seed 0, seq 2048, micro_bs 1,
+   full width and depth (random weights from seed 0, seq 512, cut from the
+   config's 2048 for the script's time as every training phase, micro_bs 1,
    8 microbatches a step over 4 simulated workers v100, rtx2080ti x2,
    gtx1080ti, 2 steps an epoch, 8 steps, ``replace@6:3=v100``, adaptive,
    while mode).  Every loss is finite, ``weighted_accum`` is launched once
@@ -150,9 +155,42 @@ nonzero exit and no result line, if anything is wrong:
     takes the chunked WKV), the allocation trajectory of the CPU smoke run;
     peak memory logged.
 
-The weighted_accum row of the kernels line counts the launches of every
-training path (8, 13, 14 summed over the ranks, 15), the ring's reduce steps
-among them.
+16. Router (``serve_router``): smollm-360m at full size behind
+    ``run_router``, two ``EngineReplica``s of paged engines (2 slots, page
+    16, one bf16 weight copy shared by the fleet) at the paper's speeds of a
+    GTX 1080 Ti and a V100, the reference's router study (32 requests, rate
+    0.9, prompts 4..12, generations 6..20, seed 1, window 6), adaptive and
+    equal: each summary equals the same fleet's of smoke engines on the CPU
+    (the virtual clocks read token counts only), adaptive beats equal on
+    makespan by the CPU's margin, every request completes once, the paged
+    kernel runs n_layers times a fleet tick; each replica's wall seconds and
+    tokens/s on the card are logged beside its virtual figures.
+17. Router faults (``serve_router_faults``): three replicas at the serving
+    campaign's speeds (1.0, 0.8, 1.25), hedging after 30 virtual seconds,
+    the campaign's traffic shape (48 requests) with seeded prompts: the
+    campaign's replica-outage spec and ``fail@3:1``; every request's tokens
+    equal the fault-free run's, no duplicate, retries and deaths equal the
+    CPU smoke fleet's; one engine of 8 slots through ``serve_loop`` on the
+    same requests is logged beside it.
+18. Serving fault campaign (``serve_campaign``): ``run_serve_campaign`` with
+    its pool-pressure engine on the card; its JSON equals the CPU's.
+19. The dense family (``serve_gemma_7b``, ``serve_gemma3_27b``,
+    ``serve_yi_34b``, ``serve_musicgen_large``): each at its full published
+    configuration (random bf16 weights from seed 0, one copy shared by a
+    flash and a paged engine of 4 slots), 6 requests (prompts 16..256,
+    generations 8..16; gemma3-27b's first prompt 1,200 tokens, past its
+    window): the geometry (gemma-7b's int8 KV cache), the flash prefill
+    against the plain attention within ``LOGITS_RTOL``, n_layers flash
+    launches a prefill and paged launches a tick, a forced preempt/restore
+    token-identical (int8 pools on gemma-7b), peak memory within weights +
+    caches + ``WORKING_BYTES``; the two routes' tokens, the paged route's
+    tick profile and tokens/s logged.  ``dense_kernel_timing`` times the paged kernel on
+    gemma-7b's int8 pools and flash at yi-34b's group of 7.
+
+The flash and paged rows of the kernels line count their launches on every
+serving path (``launches_by_path``); the weighted_accum row counts those of
+every training path (8, 13, 14 summed over the ranks, 15), the ring's reduce
+steps among them.  A ``phase_seconds`` line follows each phase.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -181,7 +219,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # the kernel tests' tolerances (tests/test_kernels.py)
 LOGITS_RTOL = 5e-2  # model logits in bf16 after 32 layers: max |diff| / max |logit|
 # rwkv6-1.6b prefill logits in float32 compute, kernel vs the plain scan: max |diff| / max |logit|
-# over the 16 workload prompts (its readings are in PERF.md)
+# over the checked workload prompts (its readings are in PERF.md)
 RWKV_FP32_RTOL = 1e-3
 RWKV_TOL = 3e-4  # the rwkv6 scan tests' tolerance (tests/test_kernels.py), float32
 RWKV_PARAMS = 1_599_868_928  # rwkv6-1.6b's parameter count (jax.eval_shape of the reference's init_params)
@@ -216,9 +254,28 @@ RWKV_CASES = [  # tests/test_kernels.py RWKV_CASES: B, T, H, D, chunk, w_min
     (1, 64, 1, 128, 32, 0.2),
 ]
 RWKV_SERVE = (1, 256, 32, 64, 32)  # rwkv6-1.6b prefill at the largest bucket: B, T, H, D, chunk
+# rwkv_serve's prefill checks take every 4th workload prompt: the plain sequential scan they are held to
+# is a Python loop over the prompt's tokens, and all 16 prompts did not fit the script's time
+RWKV_CHECK_EVERY = 4
 # the paged_scaling line: 32 slots of 1536..2048 tokens (smollm-360m's 2,048-token context, lengths
 # from this seed), page 16 over 128 page-table slots, smollm's 15/5 heads of 64, bf16
 PAGED_SCALING = dict(slots=32, lengths=(1536, 2048), seed=13, page_size=16, P=128, H=15, Hkv=5, Dh=64)
+# the dense family's kernel shapes, each kernel against its plain version: flash at gemma-7b's 16/16 heads
+# of 256, yi-34b's group of 7 (56/8 heads of 128), gemma3-27b's 1024-token window over a 1280-token prompt
+# (32/16 heads of 128) and musicgen-large's 32/32 heads of 64 (B, Sq, Sk, H, Hkv, Dh, causal, window, softcap,
+# q_offset); paged at 4 slots, page 16: gemma-7b's int8 pools at head_dim 256, yi-34b's group of 7 and
+# gemma3-27b's window at 1.1k to 1.2k tokens (label: lengths, H, Hkv, Dh, window, int8 pools)
+DENSE_FLASH_CASES = {
+    "gemma-7b": (1, 256, 256, 16, 16, 256, True, None, 0.0, 0),
+    "yi-34b G=7": (1, 256, 256, 56, 8, 128, True, None, 0.0, 0),
+    "gemma3-27b window 1024": (1, 1280, 1280, 32, 16, 128, True, 1024, 0.0, 0),
+    "musicgen-large": (1, 256, 256, 32, 32, 64, True, None, 0.0, 0),
+}
+DENSE_PAGED_CASES = {
+    "gemma-7b int8 pools": ([300, 17, 160, 64], 16, 16, 256, None, True),
+    "yi-34b G=7": ([300, 17, 160, 64], 56, 8, 128, None, False),
+    "gemma3-27b window 1024": ([1224, 1100, 300, 2], 32, 16, 128, 1024, False),
+}
 PAGED_CASES = [  # tests/test_kernels.py PAGED_CASES: lengths, H, Hkv, window, softcap
     ([10, 3, 0], 4, 2, None, 0.0),
     ([8, 8], 4, 1, None, 0.0),
@@ -445,6 +502,24 @@ def phase_kernels(workload_lengths):
         for window in (None, 40):
             compare("paged_attention", ops.paged_attention(*int8_args, window=window),
                     paged_attention_ref(*int8_args, window=window), dtype, f"smollm int8 pools window={window}")
+        for label, case in DENSE_FLASH_CASES.items():
+            B, Sq, Sk, H, Hkv, Dh, causal, window, softcap, qoff = case
+            q, k, v = flash_inputs(B, Sq, Sk, H, Hkv, Dh, dtype, seed=H + Dh)
+            kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
+            compare("flash_attention", ops.flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw), dtype,
+                    f"{label} {case}")
+        for label, (lengths, H, Hkv, Dh, window, int8) in DENSE_PAGED_CASES.items():
+            pages = [-(-n // 16) for n in lengths]
+            q, kp, vp, table, lens = paged_inputs(lengths, H, Hkv, Dh, 16, sum(pages), max(pages) + 2, dtype,
+                                                  seed=H + Dh)
+            if int8:
+                (k_i, k_s), (v_i, v_s) = quant_int8(kp), quant_int8(vp)
+                args = (q, k_i, v_i, table, lens, k_s, v_s)
+            else:
+                args = (q, kp, vp, table, lens)
+            compare("paged_attention", ops.paged_attention(*args, window=window),
+                    paged_attention_ref(*args, window=window), dtype,
+                    f"{label}: lengths={lengths} H={H} Hkv={Hkv} Dh={Dh} page=16 window={window}")
     return main_err
 
 
@@ -592,8 +667,8 @@ def phase_flash_serve(cfg, params):
     return launches
 
 
-def _run_with_forced_preempt(eng, cfg, at_tick, fresh):
-    """The workload with one request evicted: with ``fresh``, the first one
+def _run_with_forced_preempt(eng, cfg, at_tick, fresh, requests=None):
+    """The workload (or ``requests``) with one request evicted: with ``fresh``, the first one
     admitted at or after tick ``at_tick``, before its first decode tick;
     else, at tick ``at_tick``, the active one with the most generation left.
     Another request takes the freed pages first, and the scheduler restores
@@ -602,7 +677,7 @@ def _run_with_forced_preempt(eng, cfg, at_tick, fresh):
     from repro_torch.serve import Scheduler, SchedulerConfig
 
     sched = Scheduler(SchedulerConfig(max_waiting_prefill=2))
-    for r in _workload(cfg):
+    for r in requests if requests is not None else _workload(cfg):
         sched.submit(r)
     done, victim, generated, ticks = {}, None, None, 0
     while sched.queue or sched.preempted or eng.has_active:
@@ -644,13 +719,14 @@ def _preempt_case(eng, cfg, baseline, label, fresh):
     return got == want
 
 
-def _profile_ticks(eng, cfg, n=10, phase="decode_profile"):
-    """Steady decode ticks with all 8 slots active: host wall per tick without
-    and with torch.profiler, the device time of the kernels per tick, and the
-    kernels that take it."""
+def _profile_ticks(eng, cfg, n=10, phase="decode_profile", requests=None, max_gen=64):
+    """Steady decode ticks with every slot active (the first ``n_slots``
+    requests of the workload, or of ``requests``, each given ``max_gen``):
+    host wall per tick without and with torch.profiler, the device time of
+    the kernels per tick, and the kernels that take it."""
     eng.reset()
-    for r in _workload(cfg)[:8]:
-        eng.admit(r.rid, r.prompt, 64)
+    for r in (requests if requests is not None else _workload(cfg))[:eng.n_slots]:
+        eng.admit(r.rid, r.prompt, max_gen)
     for _ in range(3):
         eng.tick()
     torch.cuda.synchronize()
@@ -738,12 +814,12 @@ def phase_rwkv_serve():
     n_params = sum(p.numel() for p in params.parameters())
     log(phase="rwkv_init_params", params=n_params, seconds=time.perf_counter() - t0)
     check(n_params == RWKV_PARAMS, f"rwkv6-1.6b has {n_params} parameters, not {RWKV_PARAMS}")
-    # Every workload prompt's prefill through the kernel and through the plain
+    # The checked prompts' prefill through the kernel and through the plain
     # sequential scan, in float32 compute (the gate), then in the engine's
     # bf16 through all three routes, each also read against the float32 scan
     # on the same weights: how far the bf16 routes part from each other
     # beside how far each is from the float32 computation.
-    prompts = [r.prompt for r in _workload(cfg)]
+    prompts = [r.prompt for r in _workload(cfg)][::RWKV_CHECK_EVERY]
 
     def prefill_inputs(prompt):
         L = len(prompt)
@@ -784,7 +860,6 @@ def phase_rwkv_serve():
     reqs, summary, launches = _serve(eng, cfg, "rwkv_serve")
     check(launches["rwkv6_scan"] == cfg.n_layers * summary["prefills"] > 0, "rwkv6_scan launches = 24 x prefills")
     check(launches["flash_attention"] == launches["paged_attention"] == 0, "an rwkv engine runs no attention kernel")
-    _profile_ticks(eng, cfg, phase="rwkv_decode_profile")
     _activation_cost(eng, cfg)
     del eng
     return launches
@@ -792,10 +867,12 @@ def phase_rwkv_serve():
 
 def _activation_cost(eng, cfg):
     """What the reference's bf16 rounding of sigmoid and silu costs serving:
-    the rwkv workload and steady decode ticks with the port's step-by-step
+    steady decode ticks (8 slots active) with the port's step-by-step
     ``layers.sigmoid``/``silu`` (four elementwise kernels each) and with
     ``torch.sigmoid``/``F.silu`` (one each), in the order port, torch, torch,
-    port, so that drift of the host's speed falls on both alike."""
+    port, so that drift of the host's speed falls on both alike; the port's
+    runs are the rwkv serve's decode profile.  The decode rate is the slots
+    over the wall of a tick."""
     from repro_torch.models import rwkv
 
     port = (rwkv.sigmoid, rwkv.silu)
@@ -803,9 +880,8 @@ def _activation_cost(eng, cfg):
     try:
         for variant in ("port", "torch", "torch", "port"):
             rwkv.sigmoid, rwkv.silu = port if variant == "port" else (torch.sigmoid, torch.nn.functional.silu)
-            _, summary, _ = _serve(eng, cfg, f"rwkv_serve_{variant}_activations")
-            tick = _profile_ticks(eng, cfg, phase=f"rwkv_decode_profile_{variant}_activations")
-            runs[variant].append({"tok_per_s": summary["gen_tokens"] / summary["wall_s"], **tick})
+            tick = _profile_ticks(eng, cfg, n=5, phase=f"rwkv_decode_profile_{variant}_activations")
+            runs[variant].append({"tok_per_s": eng.n_slots * 1e3 / tick["wall_ms_per_tick"], **tick})
     finally:
         rwkv.sigmoid, rwkv.silu = port
     mean = {v: {key: float(np.mean([r[key] for r in rs])) for key in ("tok_per_s", "wall_ms_per_tick", "kernels_per_tick")}
@@ -914,10 +990,11 @@ def phase_train():
     from repro_torch.runtime.driver import DriverConfig, ElasticTrainer
 
     t0 = time.perf_counter()
-    trainer = ElasticTrainer(DriverConfig(**TRAIN, seed=0, device="cuda", log_every=1))
+    trainer = ElasticTrainer(DriverConfig(**TRAIN, seed=0, device="cuda", log_every=1),
+                             model_cfg=_seq_cfg("smollm-360m"))
     cfg = trainer.model_cfg
-    check((cfg.n_layers, cfg.d_model, cfg.vocab_size, trainer.seq_len, cfg.remat) == (32, 960, 49152, 2048, True),
-          "smollm-360m at full width and depth, seq 2048, remat")
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size, trainer.seq_len, cfg.remat) == (32, 960, 49152, TRAIN_SEQ, True),
+          "smollm-360m at full width and depth, seq 512, remat")
     params = list(trainer.state["params"].parameters())
     check((len(params), sum(p.numel() for p in params)) == (SMOLLM_TENSORS, SMOLLM_PARAMS),
           "smollm-360m's gradient tree: 290 tensors, 361,821,120 floats")
@@ -969,7 +1046,7 @@ def phase_train_measured():
 
     trainer = ElasticTrainer(DriverConfig(arch="smollm-360m", steps=2, micro_bs=1, total_micro=4, n_workers=2,
                                           steps_per_epoch=2, policy="adaptive", mode="while", seed=0,
-                                          device="cuda", log_every=1))
+                                          device="cuda", log_every=1), model_cfg=_seq_cfg("smollm-360m"))
     observed = []
     observe = trainer.ctl.observe
 
@@ -1039,7 +1116,7 @@ def phase_train_masked():
     from repro_torch.kernels import ops
 
     cfg = get_config("smollm-360m")
-    S, R, W, C = cfg.max_seq, 4, 3, 8
+    S, R, W, C = TRAIN_SEQ, 4, 3, 8
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, n_sequences=2 * C, seed=0)
     batches = list(HeteroBatcher(data, R, 1, W, seed=0).epoch(0, np.array([3, 2, 2, 1])))
     metrics = {}
@@ -1163,6 +1240,7 @@ def phase_serve_trace(cfg, params):
           f"serve_trace: completed {counters['serve.completed']} of 64, tokens {counters['serve.tokens_out']} of {gen}")
     check(snap == cpu_snap, "serve_trace: the tick-clock metrics equal the CPU smoke run's")
     check(launches["paged_attention"] == cfg.n_layers * summary["ticks"] > 0, "serve_trace: paged kernel launches")
+    trace_launches = launches["paged_attention"]
 
     # (b) the wall clock: each loop pass's seconds, the arrivals stretched to SERVE_TRACE_LOAD of the peak
     # decode rate that (a) measured
@@ -1219,6 +1297,7 @@ def phase_serve_trace(cfg, params):
               and len(events) > 0, "serve CLI: its trace and metrics files parse")
     finally:
         shutil.rmtree(out, ignore_errors=True)
+    return trace_launches
 
 
 # train_resume: full width and depth at seq 512, one slow and one netdeg window
@@ -1335,7 +1414,16 @@ DIST_STATE_RTOL = 1e-3
 # train_rwkv: rwkv6-1.6b at full width and depth, seq 512, 4 microbatches a step over 2 simulated workers
 RWKV_TRAIN = dict(arch="rwkv6-1.6b", steps=2, micro_bs=1, total_micro=4, n_workers=2, hetero_gpus="v100,gtx1080ti",
                   steps_per_epoch=2, policy="adaptive", mode="while", seed=0, log_every=1, device="cuda")
+# every training phase's sequence length: smollm-360m's max_seq of 2048 and rwkv6-1.6b's, cut to 512 so that
+# the whole script fits its time
 TRAIN_SEQ = 512
+# what the script cuts of earlier paths to fit its time, printed at its start
+CUTS = {
+    "train, train_masked, train_measured, train_resume, train_dist, train_rwkv": f"seq {TRAIN_SEQ}, not 2048",
+    "rwkv_serve prefill checks": f"every {RWKV_CHECK_EVERY}th of the 16 workload prompts",
+    "rwkv_activation_cost": "5 steady decode ticks a run, no serve of the workload; its port runs are the "
+                            "rwkv decode profile",
+}
 
 
 def _seq_cfg(arch):
@@ -1587,6 +1675,408 @@ def phase_train_rwkv():
     return launches["weighted_accum"]
 
 
+# ---------------------------------------------------------------------------
+# the router, the serving fault campaign and the dense family
+# ---------------------------------------------------------------------------
+
+# serve_router: the reference's router study (benchmarks/run.py:265-277) over two replicas at the
+# paper's speeds of a GTX 1080 Ti and a V100; each replica a paged smollm-360m engine of 2 slots
+ROUTER_ENGINE = dict(n_slots=2, max_seq=32, attn_impl="paged", page_size=16, seed=0)
+ROUTER_WORKLOAD = dict(n_requests=32, rate=0.9, prompt_len=(4, 12), gen_len=(6, 20), seed=1)
+ROUTER_WINDOW = 6
+ROUTER_GPUS = ("gtx1080ti", "v100")
+# serve_router_faults: the serving campaign's fleet (speeds 1.0, 0.8, 1.25, hedging after 30 virtual
+# seconds) and traffic shape, prompts drawn from this seed; the outage spec and fail@3:1
+ROUTER_FAULT_PROMPT_SEED = 7
+
+
+def _requests_from(spec, vocab):
+    """Fresh Request objects of a (rid, prompt, max_gen, arrival) list, prompts taken mod ``vocab``
+    (the smoke config's 512 on the CPU): the router's runs mutate their requests."""
+    from repro_torch.serve import Request
+
+    return [Request(rid=rid, prompt=prompt % vocab, max_gen=g, arrival=a) for rid, prompt, g, a in spec]
+
+
+def _router_fleet(cfg, params, device, speeds, timed=None):
+    """EngineReplicas over paged engines of ROUTER_ENGINE; with ``timed`` (a dict), each
+    replica's admissions and ticks add their wall seconds under its name."""
+    from repro_torch.serve import EngineReplica, ServeEngine
+
+    class Timed(EngineReplica):
+        def _admit(self, req):
+            t0 = time.perf_counter()
+            try:
+                return super()._admit(req)
+            finally:
+                timed[self.name] = timed.get(self.name, 0.0) + time.perf_counter() - t0
+
+        def _tick(self):
+            t0 = time.perf_counter()
+            try:
+                return super()._tick()
+            finally:
+                timed[self.name] = timed.get(self.name, 0.0) + time.perf_counter() - t0
+
+    cls = EngineReplica if timed is None else Timed
+
+    def make(name, speed):
+        return cls(name, ServeEngine(cfg, params, device=device, **ROUTER_ENGINE), speed=speed)
+
+    return [make(name, s) for name, s in speeds], make
+
+
+def _smoke_router_model():
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params as init_small
+
+    scfg = smoke_config("smollm-360m", seq=ROUTER_ENGINE["max_seq"])
+    return scfg, init_small(scfg, seed=0, device="cpu")
+
+
+def phase_serve_router(cfg, params):
+    """smollm-360m at full size behind the traffic router: adaptive and equal
+    over a GTX 1080 Ti-speed and a V100-speed replica, each summary against
+    the same fleet of smoke engines on the CPU (the virtual clocks read
+    token counts only)."""
+    from repro_torch.core.hetero import GPU_RELATIVE_THROUGHPUT
+    from repro_torch.kernels import ops
+    from repro_torch.models import compute_copy
+    from repro_torch.serve import RouterConfig, WorkloadConfig, run_router, synthesize
+
+    p16 = compute_copy(params, cfg)  # one bf16 copy, shared by every engine of the fleet
+    speeds = [(g, GPU_RELATIVE_THROUGHPUT[g]) for g in ROUTER_GPUS]
+    spec = [(r.rid, r.prompt, r.max_gen, r.arrival)
+            for r in synthesize(WorkloadConfig(vocab_size=cfg.vocab_size, **ROUTER_WORKLOAD))]
+    scfg, sparams = _smoke_router_model()
+    launches, results, cpu_results = {}, {}, {}
+    for policy in ("adaptive", "equal"):
+        rcfg = RouterConfig(policy=policy, window=ROUTER_WINDOW)
+        wall_by = {}
+        fleet, _ = _router_fleet(cfg, p16, "cuda", speeds, timed=wall_by)
+        reqs = _requests_from(spec, cfg.vocab_size)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_router(fleet, reqs, rcfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[policy] = ops.launch_counts()
+        ticks = sum(rep.engine.ticks for rep in fleet)
+        cpu_fleet, _ = _router_fleet(scfg, sparams, "cpu", speeds)
+        cpu = run_router(cpu_fleet, _requests_from(spec, scfg.vocab_size), rcfg)
+        completions = sorted(r.rid for rep in fleet for r in rep.finished)
+        results[policy], cpu_results[policy] = out, cpu
+        log(phase="serve_router", policy=policy, wall_s=wall, ticks=ticks, launches=launches[policy],
+            summary={k: out[k] for k in ("completed", "duplicates", "total_tokens", "makespan",
+                                         "throughput_tok_per_s", "latency_p50", "latency_p95", "final_shares")},
+            shares_history=out["shares_history"],
+            replicas=[{"name": r["name"], "speed": r["speed"], "tokens": r["tokens"], "virtual_busy": r["busy"],
+                       "virtual_tok_per_s": r["tok_per_s"], "wall_s": wall_by.get(r["name"]),
+                       "wall_tok_per_s": r["tokens"] / wall_by[r["name"]] if wall_by.get(r["name"]) else None}
+                      for r in out["replicas"]],
+            equals_cpu_smoke_fleet=out == cpu, note="virtual: busy, makespan, latency and tok_per_s are on the "
+            "replicas' virtual clocks; wall_*: the card's own seconds, admissions and ticks of each replica")
+        check(out == cpu, f"serve_router {policy}: the summary equals the CPU smoke fleet's")
+        check(out["completed"] == len(spec) and completions == list(range(len(spec))) and out["duplicates"] == 0,
+              f"serve_router {policy}: every request completes exactly once")
+        check(launches[policy]["paged_attention"] == cfg.n_layers * ticks > 0,
+              f"serve_router {policy}: paged launches = {cfg.n_layers} x the fleet's {ticks} ticks")
+        check(launches[policy]["flash_attention"] == 0, f"serve_router {policy}: no flash launch (paged prefill)")
+        del fleet, cpu_fleet
+    gain = 1.0 - results["adaptive"]["makespan"] / results["equal"]["makespan"]
+    cpu_gain = 1.0 - cpu_results["adaptive"]["makespan"] / cpu_results["equal"]["makespan"]
+    log(phase="serve_router_makespan", unit="virtual seconds", adaptive=results["adaptive"]["makespan"],
+        equal=results["equal"]["makespan"], improvement=gain, cpu_improvement=cpu_gain)
+    check(gain == cpu_gain and gain > 0, f"serve_router: adaptive beats equal on makespan by the CPU's {cpu_gain}")
+    del p16
+    return sum(n["paged_attention"] for n in launches.values())
+
+
+def phase_serve_router_faults(cfg, params):
+    """Three replicas at the campaign's speeds with hedging: the campaign's
+    replica-outage spec and ``fail@3:1`` over its traffic shape, each
+    request's tokens against the fault-free run on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import compute_copy
+    from repro_torch.serve import RouterConfig, SchedulerConfig, ServeEngine, run_router, serve_loop
+    from repro_torch.traces import ServeCampaignConfig, serve_scenario_faults
+    from repro_torch.traces.serve_campaign import _synth
+
+    camp = ServeCampaignConfig()
+    p16 = compute_copy(params, cfg)
+    rng = np.random.default_rng(ROUTER_FAULT_PROMPT_SEED)
+    spec = [(r.rid, rng.integers(0, cfg.vocab_size, len(r.prompt)).astype(np.int32), r.max_gen, r.arrival)
+            for r in _synth(camp, 0)]
+    speeds = [(f"r{i}", s) for i, s in enumerate(camp.speeds)]
+    rcfg = RouterConfig(policy="adaptive", window=camp.window)
+    scfg, sparams = _smoke_router_model()
+    runs = {"fault_free": (None, None),
+            "replica-outage": (serve_scenario_faults("replica-outage", 0, camp.n_replicas, camp.n_requests),
+                               camp.hedge_timeout),
+            "fail@3:1": ("fail@3:1", camp.hedge_timeout)}
+    tokens, total = {}, 0
+    for name, (faults, hedge) in runs.items():
+        fleet, make = _router_fleet(cfg, p16, "cuda", speeds)
+        reqs = _requests_from(spec, cfg.vocab_size)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_router(fleet, reqs, rcfg, make_replica=make, faults=faults, hedge_timeout=hedge)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        total += launches["paged_attention"]
+        tokens[name] = {r.rid: r.output for r in reqs}
+        cpu_fleet, cpu_make = _router_fleet(scfg, sparams, "cpu", speeds)
+        cpu = run_router(cpu_fleet, _requests_from(spec, scfg.vocab_size), rcfg, make_replica=cpu_make,
+                         faults=faults, hedge_timeout=hedge)
+        counters = ("completed", "duplicates", "suppressed", "retries", "redistributed", "hedges", "hedges_won",
+                    "hedges_lost", "replica_deaths")
+        same = tokens[name] == tokens["fault_free"]
+        log(phase="serve_router_faults", run=name, faults=faults, hedge_timeout=hedge, wall_s=wall,
+            launches=launches, **{k: out[k] for k in counters}, makespan=out["makespan"],
+            replicas=[{k: r[k] for k in ("name", "speed", "tokens", "completed", "retired")} for r in out["replicas"]],
+            tokens_equal_fault_free=same, cpu_counters={k: cpu[k] for k in counters},
+            summary_equals_cpu_smoke_fleet=out == cpu)
+        check(out["completed"] == len(spec) and out["duplicates"] == 0,
+              f"serve_router_faults {name}: every request completes, no duplicate")
+        check(same, f"serve_router_faults {name}: every request's tokens equal the fault-free run's")
+        check((out["retries"], out["replica_deaths"]) == (cpu["retries"], cpu["replica_deaths"]),
+              f"serve_router_faults {name}: retries and replica deaths equal the CPU smoke fleet's")
+        if faults:
+            check(out["replica_deaths"] >= 1 and out["retries"] >= 1, f"serve_router_faults {name}: a replica died")
+        del fleet, cpu_fleet
+    # one engine of 8 slots serving the same requests through serve_loop (logged, not gated): other GEMM
+    # shapes than the replicas' 2 slots, so bf16 may round a request's tokens apart
+    eng = ServeEngine(cfg, p16, **dict(ROUTER_ENGINE, n_slots=8))
+    reqs = _requests_from(spec, cfg.vocab_size)
+    ops.reset_launch_counts()
+    serve_loop(eng, reqs, SchedulerConfig(max_waiting_prefill=2))
+    total += ops.launch_counts()["paged_attention"]
+    differ = sorted(r.rid for r in reqs if r.output != tokens["fault_free"][r.rid])
+    log(phase="serve_router_vs_one_engine", requests=len(reqs), differ=len(differ), differing_rids=differ,
+        note="the fault-free routed run against one engine of 8 slots through serve_loop; logged, not gated")
+    del eng, p16
+    return total
+
+
+def phase_serve_campaign():
+    """``run_serve_campaign`` with its pool-pressure engine on the card, against the CPU's JSON."""
+    from repro_torch.kernels import ops
+    from repro_torch.traces import ServeCampaignConfig, run_serve_campaign
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = run_serve_campaign(ServeCampaignConfig(), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    cpu = run_serve_campaign(ServeCampaignConfig(), device="cpu")
+    equal = json.dumps(card, sort_keys=True) == json.dumps(cpu, sort_keys=True)
+    pooled = [t for t in card["trials"] if t["scenario"] == "pool-pressure"]
+    log(phase="serve_campaign", wall_s=wall, launches=launches, summary=card["summary"], equals_cpu=equal,
+        pool_pressure=[{k: t[k] for k in ("seed", "preemptions", "evicted_restored", "tokens_identical",
+                                           "interactive_wait_max_preempt", "interactive_wait_max_fifo")}
+                       for t in pooled])
+    check(equal, "serve_campaign: the JSON equals the CPU's")
+    check(all(t["tokens_identical"] for t in pooled) and card["summary"]["total_duplicates"] == 0,
+          "serve_campaign: preemption is token-identical, no duplicate")
+    check(launches["paged_attention"] > 0, "serve_campaign: the pool-pressure engine ran the paged kernel")
+    return launches["paged_attention"]
+
+
+# the dense family at full width and depth: (n_layers, d_model, n_heads, n_kv_heads, head_dim, vocab),
+# the engines' max_seq and the one long prompt (gemma3-27b: past its 1024-token window)
+DENSE = {
+    "gemma-7b": dict(geometry=(28, 3072, 16, 16, 256, 256000), max_seq=320, long_prompt=None),
+    "gemma3-27b": dict(geometry=(62, 5376, 32, 16, 128, 262144), max_seq=1536, long_prompt=1200),
+    "yi-34b": dict(geometry=(60, 7168, 56, 8, 128, 64000), max_seq=320, long_prompt=None),
+    "musicgen-large": dict(geometry=(48, 2048, 32, 32, 64, 2048), max_seq=320, long_prompt=None),
+}
+DENSE_SLOTS = 4
+DENSE_WORKLOAD = dict(n_requests=6, rate=0.0, prompt_len=(16, 256), gen_len=(8, 16), seed=0)
+WORKING_BYTES = 2e9  # what an engine may take beyond its weights and caches
+
+
+def _tensor_bytes(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in tree)
+    return 0
+
+
+def _free_card():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return {"free_gb": free / 1e9, "total_gb": total / 1e9, "allocated_gb": torch.cuda.memory_allocated() / 1e9}
+
+
+def phase_serve_dense(arch):
+    """One architecture of the dense family at its full published
+    configuration (random bf16 weights from seed 0), shared by a flash and a
+    paged engine of 4 slots: geometry, the flash prefill against the plain
+    attention, launches a prefill and a tick, the two routes' tokens, a
+    forced preempt/restore, and peak memory against weights + caches +
+    WORKING_BYTES."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serve import SchedulerConfig, ServeEngine, WorkloadConfig, bucket_len, serve_loop, synthesize
+
+    name = f"serve_{arch.replace('-', '_')}"
+    d = DENSE[arch]
+    cfg = get_config(arch)
+    geometry = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.vocab_size)
+    check(geometry == d["geometry"], f"{arch} at full width and depth: {geometry}")
+    check(cfg.kv_cache_dtype == ("int8" if arch == "gemma-7b" else "compute"), f"{arch}: kv_cache_dtype")
+    before = _free_card()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(phase=f"{name}_init", params=n_params, weight_gb=weight_bytes / 1e9, seconds=time.perf_counter() - t0,
+        memory_before=before, memory_after=_free_card())
+
+    spec = [(r.rid, r.prompt, r.max_gen, r.arrival)
+            for r in synthesize(WorkloadConfig(vocab_size=cfg.vocab_size, **DENSE_WORKLOAD))]
+    if d["long_prompt"]:
+        long = np.random.default_rng(1).integers(0, cfg.vocab_size, d["long_prompt"]).astype(np.int32)
+        spec[0] = (0, long, spec[0][2], 0.0)
+
+    def requests():
+        return _requests_from(spec, cfg.vocab_size)
+
+    out, launches, peaks = {}, {}, {}
+    for impl in ("flash", "paged"):
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(page_size=16) if impl == "paged" else {}
+        eng = ServeEngine(cfg, params, n_slots=DENSE_SLOTS, max_seq=d["max_seq"], attn_impl=impl, **kw)
+        check(all(a.data_ptr() == b.data_ptr() for a, b in zip(params.parameters(), eng.params.parameters())),
+              f"{name} {impl}: the engine shares the bf16 weights (no compute copy)")
+        # the template and the batch-1 cache a prefill writes from it
+        cache_bytes = _tensor_bytes(eng.cache) + 2 * _tensor_bytes(eng._fresh1)
+        if impl == "flash":  # the first prompt (gemma3: the long one) through flash and through the plain attention
+            prompt = spec[0][1]
+            L = len(prompt)
+            toks = torch.zeros((1, bucket_len(L)), dtype=torch.long, device="cuda")
+            toks[0, :L] = torch.from_numpy(prompt.astype(np.int64))
+            lengths = torch.tensor([L], dtype=torch.int32, device="cuda")
+            lf = prefill(eng.params, eng._fresh1, toks, lengths, cfg, "flash")[0]  # its cache dropped at once
+            ln = prefill(eng.params, eng._fresh1, toks, lengths, cfg, "naive")[0]
+            rel = _rel_err(lf, ln)
+            log(phase=f"{name}_flash_prefill_check", prompt_len=L, bucket=bucket_len(L), rel_err=rel,
+                rtol=LOGITS_RTOL, top1_flash=int(lf.argmax()), top1_plain=int(ln.argmax()))
+            check(rel <= LOGITS_RTOL and bool(torch.isfinite(lf).all() and torch.isfinite(ln).all()),
+                  f"{name}: flash prefill logits vs plain attention")
+            prefill_gap = rel
+            del lf, ln
+        reqs = requests()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = serve_loop(eng, reqs, SchedulerConfig(max_waiting_prefill=2))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[impl] = ops.launch_counts()
+        out[impl] = {r.rid: r.output for r in reqs}
+        log(phase=f"{name}_{impl}", requests=len(reqs), completed=summary["completed"], ticks=summary["ticks"],
+            prefills=summary["prefills"], gen_tokens=summary["gen_tokens"], wall_s=wall,
+            tok_per_s=summary["gen_tokens"] / wall, launches=launches[impl],
+            prompt_lens=[len(r.prompt) for r in reqs])
+        check(summary["completed"] == len(spec) and all(len(r.output) == r.max_gen for r in reqs),
+              f"{name} {impl}: every request completed")
+        check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.output), f"{name} {impl}: tokens in the vocab")
+        if impl == "flash":
+            check(launches[impl]["flash_attention"] == cfg.n_layers * summary["prefills"] > 0
+                  and launches[impl]["paged_attention"] == 0, f"{name}: flash launches = n_layers a prefill")
+        else:
+            check(launches[impl]["paged_attention"] == cfg.n_layers * summary["ticks"] > 0
+                  and launches[impl]["flash_attention"] == 0, f"{name}: paged launches = n_layers a tick")
+            victim_ok = _dense_preempt_case(eng, cfg, out[impl], requests, name)
+            check(victim_ok, f"{name}: a request restored mid-generation continues token-identically")
+            profile_reqs = requests()  # the decode route's ticks (the flash route decodes as smollm's flash serve)
+            _profile_ticks(eng, cfg, n=3, phase=f"{name}_paged_decode_profile", requests=profile_reqs,
+                           max_gen=min(24, d["max_seq"] - max(len(r.prompt) for r in profile_reqs[:DENSE_SLOTS])))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        peaks[impl] = {"peak_gb": peak / 1e9, "weights_gb": weight_bytes / 1e9, "caches_gb": cache_bytes / 1e9,
+                       "working_gb": (peak - weight_bytes - cache_bytes) / 1e9,
+                       "limit_gb": (weight_bytes + cache_bytes + WORKING_BYTES) / 1e9}
+        check(torch.cuda.max_memory_allocated() <= weight_bytes + cache_bytes + WORKING_BYTES,
+              f"{name} {impl}: peak memory {peaks[impl]} within weights + caches + 2 GB")
+        del eng
+        torch.cuda.empty_cache()
+    agree = sorted(rid for rid in out["flash"] if out["flash"][rid] == out["paged"][rid])
+    first_diff = {rid: next((i for i, (a, b) in enumerate(zip(out["flash"][rid], out["paged"][rid])) if a != b), None)
+                  for rid in out["flash"] if rid not in agree}
+    log(phase=name, params=n_params, geometry=dict(zip(("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+                                                         "vocab"), geometry)),
+        kv_cache_dtype=cfg.kv_cache_dtype, sliding_window=cfg.sliding_window if arch == "gemma3-27b" else None,
+        routes_agree=len(agree), requests=len(spec), first_divergence=first_diff, prefill_logit_gap=prefill_gap,
+        memory=peaks, note="flash: dense cache (ring of the window on gemma3's local layers), flash prefill; "
+        "paged: pools keep every position, naive prefill, the kernel masks by window")
+    del params
+    _free_card()
+    return {"flash": launches["flash"]["flash_attention"], "paged": launches["paged"]["paged_attention"]}
+
+
+def _dense_preempt_case(eng, cfg, baseline, requests, name):
+    """A forced eviction at tick 3 (the active slot with the most generation
+    left), restored by the scheduler: the victim's tokens against ``baseline``."""
+    eng.reset()
+    done, victim, generated = _run_with_forced_preempt(eng, cfg, at_tick=3, fresh=False, requests=requests())
+    got, want = done[victim], baseline[victim]
+    log(phase=f"{name}_preempt_restore", victim=victim, generated_when_evicted=generated, tokens=len(want),
+        victim_tokens_equal=got == want, requests_equal=sum(done.get(rid) == toks for rid, toks in baseline.items()),
+        requests=len(baseline), kv_cache_dtype=cfg.kv_cache_dtype)
+    eng.reset()  # leak audit of the pool
+    return got == want
+
+
+def dense_kernel_timing():
+    """Device time at two of the dense family's decode and prefill shapes: the
+    paged kernel on gemma-7b's int8 pools (4 slots, 16 kv heads of 256, page
+    16) and flash at yi-34b's group of 7 (S = 256), beside the bound, the
+    plain version and (flash) SDPA."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    lengths, H, Hkv, Dh, window, _ = DENSE_PAGED_CASES["gemma-7b int8 pools"]
+    pages = [-(-n // 16) for n in lengths]
+    q, kp, vp, table, lens = paged_inputs(lengths, H, Hkv, Dh, 16, sum(pages), max(pages) + 2, torch.bfloat16, seed=21)
+    (k_i, k_s), (v_i, v_s) = quant_int8(kp), quant_int8(vp)
+    args = (q, k_i, v_i, table, lens, k_s, v_s)
+    live = sum(lengths)
+    nbytes = 2 * live * Hkv * (Dh + 2) + 2 * q.numel() * 2 + table.numel() * 4 + lens.numel() * 4
+    flops = 4 * live * H * Dh
+    bound = max(nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
+    log(phase="dense_kernel_timing", kernel="paged_attention",
+        shape=f"gemma-7b int8 pools: lengths={lengths} H={H} Hkv={Hkv} Dh={Dh} page=16, bf16 q",
+        ms=device_ms(lambda: pa.paged_attention_cuda(*args), "paged_attention gemma-7b int8"),
+        plain_ms=device_ms(lambda: pa.paged_attention_ref(*args), "paged_attention plain gemma-7b int8", iters=20),
+        call_ms=time_ms(lambda: pa.paged_attention_cuda(*args)), bytes=nbytes, flops=flops, bound_ms=bound,
+        bound_by="bytes" if nbytes / PEAK_BYTES > flops / PEAK_BF16_FLOPS else "operations")
+    B, Sq, Sk, H, Hkv, Dh = DENSE_FLASH_CASES["yi-34b G=7"][:6]
+    q, k, v = flash_inputs(B, Sq, Sk, H, Hkv, Dh, torch.bfloat16, seed=22)
+    flops = 4 * (B * Sq * (Sq + 1) // 2) * H * Dh
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) + q.numel() * q.element_size()
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    log(phase="dense_kernel_timing", kernel="flash_attention", shape=f"yi-34b: B={B} S={Sq} H={H} Hkv={Hkv} "
+        f"Dh={Dh} bf16 causal", ms=device_ms(lambda: fa.flash_attention_cuda(q, k, v), "flash_attention yi-34b"),
+        plain_ms=device_ms(lambda: fa.flash_attention_ref(q, k, v), "flash_attention plain yi-34b", iters=20),
+        library_ms=device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), "sdpa yi-34b"),
+        bytes=nbytes, flops=flops, bound_ms=max(nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS) * 1e3,
+        bound_by="bytes" if nbytes / PEAK_BYTES > flops / PEAK_BF16_FLOPS else "operations")
+
+
 def accum_timing_row(counts, main_err):
     """The weighted_accum row: one accumulation over smollm-360m's whole float32
     gradient tree (one launch) and over the embedding alone; the library call
@@ -1730,7 +2220,8 @@ def phase_timing(main_err, launches, paged_lengths):
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         route_detail="bf16: wgmma.mma_async on the tensor cores (S = Q K^T m64n64k16 from shared memory, "
                      "O += P V with P from registers), cp.async K/V into a two-stage ring",
-        replaces="src/repro/kernels/flash_attention.py:124", launches=launches["flash"],
+        replaces="src/repro/kernels/flash_attention.py:124", launches=sum(launches["flash"].values()),
+        launches_by_path=launches["flash"],
         max_abs_err=main_err["flash_attention"],
         ms=device_ms(lambda: fa.flash_attention_cuda(q, k, v), "flash_attention"),
         plain_ms=device_ms(lambda: fa.flash_attention_ref(q, k, v), "flash_attention plain", iters=20),
@@ -1743,6 +2234,7 @@ def phase_timing(main_err, launches, paged_lengths):
     ))
     flash_scaling()
     paged_scaling()
+    dense_kernel_timing()
     # paged: 8 slots mid-generation of the workload's first 8 requests, page size 16
     args = paged_inputs(paged_lengths, 15, 5, 64, 16, 160, 20, bf, seed=8)
     q, k_pool, v_pool, table, lens = args
@@ -1757,7 +2249,8 @@ def phase_timing(main_err, launches, paged_lengths):
                      "(head, token) scores and (head, dim pair) P V over all 128 threads; the last block of a "
                      "(slot, kv head) merges the splits in order (atomic ticket), one launch a call",
         grid={"blocks": plan.blocks, "splits": plan.n_splits},
-        replaces="src/repro/kernels/paged_attention.py:130", launches=launches["paged"],
+        replaces="src/repro/kernels/paged_attention.py:130", launches=sum(launches["paged"].values()),
+        launches_by_path=launches["paged"],
         max_abs_err=main_err["paged_attention"],
         ms=device_ms(lambda: pa.paged_attention_cuda(*args), "paged_attention"),
         plain_ms=device_ms(lambda: pa.paged_attention_ref(*args), "paged_attention plain", iters=20),
@@ -1823,55 +2316,71 @@ def main() -> int:
     from repro_torch.models import init_params
 
     t_start = time.perf_counter()
+    phase_times = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            phase_times[name] = time.perf_counter() - t0
+            log(phase="phase_seconds", name=name, seconds=phase_times[name])
+
     smi = phase_device()
+    log(phase="cuts", cuts=CUTS)
     cfg = get_config("smollm-360m")
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size) == (32, 960, 15, 5, 49152),
           "smollm-360m at full width and depth")
     paged_lengths = [int(len(r.prompt) + r.max_gen // 2) for r in _workload(cfg)[:8]]
-    main_err = phase_kernels(paged_lengths)
-    phase_paged_determinism(paged_lengths)
-    phase_paged_page_past_pool(paged_lengths)
-    main_err["rwkv6_scan"] = phase_rwkv_kernels()
-    main_err["weighted_accum"] = phase_accum_kernels()
+    main_err = timed("kernels", phase_kernels, paged_lengths)
+    timed("paged_determinism", phase_paged_determinism, paged_lengths)
+    timed("paged_page_past_pool", phase_paged_page_past_pool, paged_lengths)
+    main_err["rwkv6_scan"] = timed("rwkv_kernels", phase_rwkv_kernels)
+    main_err["weighted_accum"] = timed("accum_kernels", phase_accum_kernels)
 
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     log(phase="init_params", params=sum(p.numel() for p in params.parameters()), seconds=time.perf_counter() - t0)
-    flash_launches = phase_flash_serve(cfg, params)
+    flash_launches = {"flash_serve": timed("flash_serve", phase_flash_serve, cfg, params)["flash_attention"]}
     torch.cuda.empty_cache()
-    paged_launches = phase_paged_serve(cfg, params)
+    paged_launches = {"paged_serve": timed("paged_serve", phase_paged_serve, cfg, params)["paged_attention"]}
     torch.cuda.empty_cache()
-    phase_serve_trace(cfg, params)
+    paged_launches["serve_trace"] = timed("serve_trace", phase_serve_trace, cfg, params)
+    paged_launches["serve_router"] = timed("serve_router", phase_serve_router, cfg, params)
+    paged_launches["serve_router_faults"] = timed("serve_router_faults", phase_serve_router_faults, cfg, params)
     del params
     torch.cuda.empty_cache()
-    rwkv_launches = phase_rwkv_serve()
+    paged_launches["serve_campaign"] = timed("serve_campaign", phase_serve_campaign)
+    for arch in DENSE:
+        dense = timed(f"serve_{arch.replace('-', '_')}", phase_serve_dense, arch)
+        flash_launches[f"serve_{arch}"] = dense["flash"]
+        paged_launches[f"serve_{arch}"] = dense["paged"]
+    rwkv_launches = timed("rwkv_serve", phase_rwkv_serve)
     torch.cuda.empty_cache()
-    accum_counts, _ = phase_train()
+    accum_counts, _ = timed("train", phase_train)
     torch.cuda.empty_cache()
-    phase_train_masked()
+    timed("train_masked", phase_train_masked)
     torch.cuda.empty_cache()
-    phase_train_measured()
+    timed("train_measured", phase_train_measured)
     torch.cuda.empty_cache()
-    phase_train_resume()
+    timed("train_resume", phase_train_resume)
     torch.cuda.empty_cache()
-    dist_nccl = phase_train_dist_nccl()
+    dist_nccl = timed("train_dist_nccl", phase_train_dist_nccl)
     torch.cuda.empty_cache()
-    dist_gloo = phase_train_dist_gloo()
+    dist_gloo = timed("train_dist_gloo", phase_train_dist_gloo)
     torch.cuda.empty_cache()
-    rwkv_train = phase_train_rwkv()
+    rwkv_train = timed("train_rwkv", phase_train_rwkv)
     torch.cuda.empty_cache()
     accum_counts["by_path"] = {"train": accum_counts["launches"], "train_dist_nccl": dist_nccl,
                                "train_dist_gloo": dist_gloo["launches"], "train_rwkv": rwkv_train}
     accum_counts["ring_launches"] = dist_gloo["ring_launches"]
 
-    rows = phase_timing(
-        main_err,
-        {"flash": flash_launches["flash_attention"], "paged": paged_launches["paged_attention"],
-         "rwkv": rwkv_launches["rwkv6_scan"], "accum": accum_counts},
-        paged_lengths,
-    )
-    log(phase="done", seconds=time.perf_counter() - t_start, nvidia_smi=smi)
+    rows = timed("timing", phase_timing, main_err,
+                 {"flash": flash_launches, "paged": paged_launches, "rwkv": rwkv_launches["rwkv6_scan"],
+                  "accum": accum_counts},
+                 paged_lengths)
+    log(phase="done", seconds=time.perf_counter() - t_start, phase_seconds=phase_times, nvidia_smi=smi)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

@@ -1,24 +1,44 @@
 """Architecture registry of the port: ``get_config(arch_id)`` + reduced smoke configs.
 
-Only the architectures whose every layer the port can run are registered;
-the rest of the reference registry (``repro.configs``) joins slice by slice.
-``smoke_config`` is the reference's shrink rule, unchanged (the MoE, Mamba
-and RWKV sub-configs shrink too), so a smoke config here equals the JAX
-side's field for field.
+Only the architectures whose every layer the port can run are registered:
+the dense family (smollm-360m, gemma-7b with its int8 KV cache, gemma3-27b,
+yi-34b, musicgen-large) and rwkv6-1.6b.  The rest of the reference registry
+(``repro.configs``: llava's embedding inputs, the MoE, Mamba and hybrid
+families) joins slice by slice.  ``smoke_config`` is the reference's shrink
+rule, unchanged (the MoE, Mamba and RWKV sub-configs shrink too, a pattern's
+tail layer stays), so a smoke config here equals the JAX side's field for
+field.  The assigned shape set (``configs.shapes``) is the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import rwkv6_1p6b, smollm_360m
+from repro_torch.configs import gemma3_27b, gemma_7b, musicgen_large, rwkv6_1p6b, smollm_360m, yi_34b
+from repro_torch.configs.shapes import LONG_CONTEXT_ARCHS, SHAPES, ShapeSpec, runnable_shapes, skip_reason
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCHS", "get_config", "smoke_config"]
+__all__ = [
+    "ARCHS",
+    "SHAPES",
+    "ShapeSpec",
+    "LONG_CONTEXT_ARCHS",
+    "get_config",
+    "smoke_config",
+    "train_accum",
+    "list_archs",
+    "runnable_shapes",
+    "skip_reason",
+]
 
-_MODULES = [rwkv6_1p6b, smollm_360m]
+_MODULES = [rwkv6_1p6b, smollm_360m, gemma3_27b, yi_34b, gemma_7b, musicgen_large]
 
 ARCHS: dict[str, ModelConfig] = {m.ARCH_ID: m.CONFIG for m in _MODULES}
+_ACCUM: dict[str, int] = {m.ARCH_ID: m.TRAIN_ACCUM for m in _MODULES}
+
+
+def list_archs() -> list[str]:
+    return list(ARCHS)
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -27,11 +47,17 @@ def get_config(arch_id: str) -> ModelConfig:
     return ARCHS[arch_id]
 
 
+def train_accum(arch_id: str) -> int:
+    """Recommended gradient-accumulation microbatches (C per data rank) for train_4k."""
+    return _ACCUM[arch_id]
+
+
 def smoke_config(arch_id: str, seq: int = 64) -> ModelConfig:
     """Shrink to CPU scale, preserving structure. One pattern repetition
     (+ tail if the full config has one) so heterogeneous stacks are covered."""
     cfg = get_config(arch_id)
     pat = len(cfg.block_pattern)
+    # keep a tail layer if the real config has one (gemma3: 62 % 6 == 2)
     n_layers = pat * (2 if pat == 1 else 1) + (1 if cfg.n_layers % pat else 0)
     n_heads = 4
     ratio = max(1, cfg.n_heads // cfg.n_kv_heads)

@@ -11,6 +11,11 @@ The port of ``repro.models.attention``:
 * decode against the dense per-slot cache is plain PyTorch, and decode against
   the paged pool goes through ``kernels.ops.paged_attention``.
 
+The KV cache is in the compute dtype or, with ``kv_cache_dtype="int8"``,
+int8 with a bf16 scale per (slot, position, kv head) (``_quant_int8``): dense
+decode dequantises in bf16, as the reference does, and the paged kernel
+dequantises the pools it reads.
+
 GQA groups query heads: q is viewed as (B, S, Hkv, G, Dh) against k (B, S, Hkv, Dh).
 Decode updates the cache tensors in place (the reference returns new arrays):
 the caller's cache dict shares them with the returned one.
@@ -207,7 +212,8 @@ def attention_decode(
     x: (B, 1, d); cache: {"k","v": (B, S_cache, Hkv, Dh), "pos": (B, S_cache),
     "index": (B,)}.  Each row writes its new K/V at slot ``index % S_cache``
     (a ring when ``S_cache`` is the window) and records the absolute position
-    in ``pos`` (-1 = empty), so masking is exact across wraparound.  A cache
+    in ``pos`` (-1 = empty), so masking is exact across wraparound.  An int8
+    cache also holds ``k_scale``/``v_scale`` (B, S_cache, Hkv).  A cache
     with pools and a page table (``k_pool``/``v_pool``/``pages``) decodes
     through the paged kernel instead (``_decode_paged``).
     Returns (out (B, 1, d), cache with ``index + 1``)."""
@@ -221,13 +227,23 @@ def attention_decode(
     k, v, pos = cache["k"], cache["v"], cache["pos"]
     bidx = torch.arange(B, device=x.device)
     slot = (index % k.shape[1]).long()
-    k[bidx, slot] = k_new[:, 0].to(k.dtype)
-    v[bidx, slot] = v_new[:, 0].to(v.dtype)
     pos[bidx, slot] = index.to(pos.dtype)
+    if k.dtype == torch.int8:
+        for key, new in (("k", k_new), ("v", v_new)):
+            q8, scale = _quant_int8(new)
+            cache[key][bidx, slot] = q8[:, 0]
+            cache[f"{key}_scale"][bidx, slot] = scale[:, 0]
+        # dequantised in bf16 (the reference's int8 * bf16 scale)
+        k = k.to(torch.bfloat16) * cache["k_scale"][..., None]
+        v = v.to(torch.bfloat16) * cache["v_scale"][..., None]
+    else:
+        k[bidx, slot] = k_new[:, 0].to(k.dtype)
+        v[bidx, slot] = v_new[:, 0].to(v.dtype)
 
     Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
     qg = q.reshape(B, 1, Hkv, cfg.n_heads // Hkv, Dh)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * (Dh**-0.5)
+    dt = torch.promote_types(q.dtype, k.dtype)  # jnp.einsum's promotion of a bf16 cache under f32 compute
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(dt), k.to(dt)).float() * (Dh**-0.5)
     scores = _softcap(scores, cfg.attn_logit_softcap)
     bound = index[:, None]
     valid = (pos >= 0) & (pos <= bound)  # (B, S_cache)
@@ -244,8 +260,9 @@ def _decode_paged(
 ) -> tuple[torch.Tensor, dict]:
     """One-token decode against a paged KV pool, updated in place.
 
-    cache: {"k_pool","v_pool": (n_pages+1, page_size, Hkv, Dh), "pages": (B, P)
-    int32, "index": (B,)}.  The new token's K/V goes to the slot's page for
+    cache: {"k_pool","v_pool": (n_pages+1, page_size, Hkv, Dh) [+ int8 scale
+    pools "k_scale_pool","v_scale_pool" (n_pages+1, page_size, Hkv)], "pages":
+    (B, P) int32, "index": (B,)}.  The new token's K/V goes to the slot's page for
     position ``index``; a slot without an allocated page there (an inactive
     slot) writes the trailing scratch page, so the only repeated indices of
     the scatter land on the scratch page, whose contents nothing reads.  Then
@@ -261,12 +278,20 @@ def _decode_paged(
     pg = pages[bidx, pslot].long()
     dest = torch.where(pg >= 0, pg, scratch_page)
     off = (index % page_size).long()
-    k_pool[dest, off] = k_new[:, 0].to(k_pool.dtype)
-    v_pool[dest, off] = v_new[:, 0].to(v_pool.dtype)
+    k_scale = v_scale = None
+    if k_pool.dtype == torch.int8:
+        k_scale, v_scale = cache["k_scale_pool"], cache["v_scale_pool"]
+        for pool, scales, new in ((k_pool, k_scale, k_new), (v_pool, v_scale, v_new)):
+            q8, scale = _quant_int8(new)
+            pool[dest, off] = q8[:, 0]
+            scales[dest, off] = scale[:, 0]
+    else:
+        k_pool[dest, off] = k_new[:, 0].to(k_pool.dtype)
+        v_pool[dest, off] = v_new[:, 0].to(v_pool.dtype)
 
     window = cfg.sliding_window if attn_type == "local" else None
     out = kops.paged_attention(
-        q[:, 0], k_pool, v_pool, pages, index + 1, window=window, softcap=cfg.attn_logit_softcap
+        q[:, 0], k_pool, v_pool, pages, index + 1, k_scale, v_scale, window=window, softcap=cfg.attn_logit_softcap
     )
     return linear(out.reshape(B, 1, cfg.q_dim).to(x.dtype), p.wo), dict(cache, index=index + 1)
 
@@ -286,7 +311,9 @@ def attention_prefill(
 
     x: (B, S_p, d) right-padded prompts; lengths: (B,) valid counts (>= 1).
     Right padding keeps RoPE positions at 0..L-1 and causality keeps pad rows
-    out of real rows' outputs.  Returns (out (B, S_p, d), {"k","v","pos"})."""
+    out of real rows' outputs.  An int8 cache takes the quantised K/V and
+    their scales; the prompt itself attends the unquantised ones.
+    Returns (out (B, S_p, d), {"k","v","pos"[,"k_scale","v_scale"]})."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
@@ -301,27 +328,49 @@ def attention_prefill(
     L = lengths.long()[:, None]
     p_win = torch.where(L > s_idx, s_idx + torch.div(L - 1 - s_idx, S_cache, rounding_mode="floor") * S_cache, -1)
     gidx = torch.clamp(p_win, 0, S - 1)
-    keep = (p_win >= 0)[:, :, None, None]
+    keep = p_win >= 0
 
     def gather(src, buf):
-        idx = gidx[:, :, None, None].expand(B, S_cache, src.shape[2], src.shape[3])
-        return torch.where(keep, torch.gather(src, 1, idx), 0).to(buf.dtype)
+        trail = (1,) * (src.ndim - 2)
+        idx = gidx.reshape(B, S_cache, *trail).expand(B, S_cache, *src.shape[2:])
+        return torch.where(keep.reshape(B, S_cache, *trail), torch.gather(src, 1, idx), 0).to(buf.dtype)
 
-    new_cache = {"pos": p_win.to(torch.int32), "k": gather(k, cache["k"]), "v": gather(v, cache["v"])}
+    new_cache = {"pos": p_win.to(torch.int32)}
+    if cache["k"].dtype == torch.int8:
+        for key, src in (("k", k), ("v", v)):
+            q8, scale = _quant_int8(src)
+            new_cache[key] = gather(q8, cache[key])
+            new_cache[f"{key}_scale"] = gather(scale, cache[f"{key}_scale"])
+    else:
+        new_cache.update(k=gather(k, cache["k"]), v=gather(v, cache["v"]))
     return out, new_cache
 
 
-def _check_kv_dtype(cfg: ModelConfig) -> None:
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache waits for a later slice of the port")
+def _quant_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(batch, position, head) int8 quantization, the reference's
+    ``_quant_int8``: x (B, S, H, Dh) -> (int8 of the same shape, bf16 scales
+    (B, S, H)).  The scale is max |x| / 127 in float32 (at least 1e-8), the
+    values are rounded half to even (``torch.round`` as ``jnp.round``) and
+    clipped to +-127, and the scale is stored in bf16."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
 
 
 def init_paged_kv_cache(cfg: ModelConfig, layout: PagedLayout, dtype=None, device=None) -> dict:
     """One attention layer's paged KV pool: ``layout.n_pages`` shared pages
     plus a trailing scratch page.  The page table and position clock live once
-    at the cache's top level."""
-    _check_kv_dtype(cfg)
+    at the cache's top level.  An int8 cache adds the bf16 scale pools
+    ``k_scale_pool``/``v_scale_pool`` (n_pages + 1, page_size, Hkv)."""
     shape = (layout.n_pages + 1, layout.page_size, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {
+            "k_pool": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v_pool": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale_pool": torch.zeros(shape[:3], dtype=torch.bfloat16, device=device),
+            "v_scale_pool": torch.zeros(shape[:3], dtype=torch.bfloat16, device=device),
+        }
     dt = dtype or cfg.dtype("compute")
     return {"k_pool": torch.zeros(shape, dtype=dt, device=device), "v_pool": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -329,14 +378,18 @@ def init_paged_kv_cache(cfg: ModelConfig, layout: PagedLayout, dtype=None, devic
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, window: bool = False, device=None) -> dict:
     """The per-slot (continuous-batching) layout: ``pos`` (batch, S_cache) and
     ``index`` (batch,), so rows advance independently.  ``window=True``: a
-    ring buffer of ``sliding_window`` slots (local layers)."""
-    _check_kv_dtype(cfg)
-    dt = dtype or cfg.dtype("compute")
+    ring buffer of ``sliding_window`` slots (local layers).  An int8 cache
+    holds int8 ``k``/``v`` and bf16 ``k_scale``/``v_scale`` (batch, S_cache, Hkv)."""
     s_cache = min(max_seq, cfg.sliding_window) if window else max_seq
     shape = (batch, s_cache, cfg.n_kv_heads, cfg.head_dim)
-    return {
+    cache = {
         "pos": torch.full((batch, s_cache), -1, dtype=torch.int32, device=device),
         "index": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device),
     }
+    if cfg.kv_cache_dtype == "int8":
+        for key in ("k", "v"):
+            cache[key] = torch.zeros(shape, dtype=torch.int8, device=device)
+            cache[f"{key}_scale"] = torch.zeros(shape[:3], dtype=torch.bfloat16, device=device)
+        return cache
+    dt = dtype or cfg.dtype("compute")
+    return cache | {"k": torch.zeros(shape, dtype=dt, device=device), "v": torch.zeros(shape, dtype=dt, device=device)}

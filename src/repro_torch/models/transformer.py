@@ -1,11 +1,12 @@
 """Decoder-LM assembly: parameters, ``forward``/``loss_fn`` for training, caches, ``prefill`` and ``decode_step``.
 
 The port of ``repro.models.transformer`` for attention layers with dense
-MLPs and for RWKV6 layers, under RMSNorm or LayerNorm.  The layer stack is a
-``ModuleList`` walked by a Python loop where the reference scans over its
-pattern-stacked ``body``; the cache likewise holds one dict per layer.
-Mamba and MoE layers, and embedding inputs, raise ``NotImplementedError``
-until their slice.
+MLPs and for RWKV6 layers, under RMSNorm or LayerNorm: the dense family
+(smollm, gemma and gemma3, yi, musicgen; the KV cache in the compute dtype
+or int8) and rwkv6.  The layer stack is a ``ModuleList`` walked by a Python
+loop where the reference scans over its pattern-stacked ``body``; the cache
+likewise holds one dict per layer.  Mamba and MoE layers, and embedding
+inputs (llava), raise ``NotImplementedError`` until their slice.
 
 Public entry points:
   init_params / compute_copy            parameters (seeded) and their compute-dtype copy
@@ -132,15 +133,21 @@ def compute_copy(params: Transformer, cfg: ModelConfig | None = None) -> Transfo
     norm gains and other vectors stay in the parameter dtype, as the
     reference reads them.  The rule: a matrix that the reference reads in
     float32 (a module's ``READ_IN_FP32``, such as RWKV's ``decay_w2``) is
-    never narrowed."""
+    never narrowed.
+
+    Only a matrix that changes dtype gets new storage: every other parameter
+    object is shared with ``params`` (neither side writes its parameters when
+    serving), so a model already in its compute dtype costs no second copy."""
     dt = (cfg or params.cfg).dtype("compute")
-    out = copy.deepcopy(params)
-    for module in out.modules():
+    memo = {}
+    for module in params.modules():
         keep = getattr(module, "READ_IN_FP32", ())
         for name, param in module.named_parameters(recurse=False):
-            if param.ndim >= 2 and name not in keep:
-                param.data = param.data.to(dt)
-    return out
+            if param.ndim >= 2 and name not in keep and param.dtype != dt:
+                memo[id(param)] = nn.Parameter(param.data.to(dt), requires_grad=param.requires_grad)
+            else:
+                memo[id(param)] = param
+    return copy.deepcopy(params, memo)
 
 
 # ---------------------------------------------------------------------------

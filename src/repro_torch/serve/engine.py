@@ -16,18 +16,19 @@ Recurrent (RWKV) layers keep a per-slot state in either layout, and the
 splice overwrites the slot's row of it whole.
 
 Preemption (paged) keeps the evicted slot's cache: ``preempt`` copies its
-live K/V rows (and any recurrent row) to host memory in the resume token
-and releases its pages; ``restore`` copies them into freshly allocated
-pages.  The reference re-prefills prompt + generated tokens instead
+live K/V rows (with an int8 cache's scale rows, and any recurrent row) to
+host memory in the resume token and releases its pages; ``restore`` copies
+them into freshly allocated pages.  The reference re-prefills prompt + generated tokens instead
 (``repro/serve/engine.py:640-699``), which gives the generated positions
 prefill arithmetic in place of decode arithmetic; in bfloat16 the two round
 apart, so only kept rows continue token-identically.  A restore is
 therefore no prefill here: ``prefills``/``prefill_tokens`` count admissions
 only, where the reference's count restores too.
 
-The engine makes one compute-dtype copy of the parameters at load
-(``models.transformer.compute_copy``), which is the same arithmetic as
-casting every matrix at its use.
+The engine holds the parameters in the compute dtype
+(``models.transformer.compute_copy``, the same arithmetic as casting every
+matrix at its use): a matrix it narrows is copied once at load, and every
+other parameter is the caller's own tensor.
 """
 
 from __future__ import annotations
@@ -43,6 +44,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serve.paged import PagePool
 
 __all__ = ["ServeEngine", "bucket_len"]
+
+# template-cache key -> paged-pool key for the admission splice (the scales of an int8 cache too)
+_POOL_KEYS = (("k", "k_pool"), ("v", "v_pool"), ("k_scale", "k_scale_pool"), ("v_scale", "v_scale_pool"))
 
 
 def bucket_len(n: int, lo: int = 8) -> int:
@@ -136,10 +140,14 @@ class ServeEngine:
         self.pool: PagePool | None = None
         self.reset()
 
-    def reset(self) -> None:
+    def reset(self, seed: int | None = None) -> None:
         """Return the engine to its just-constructed state: fresh cache, all
-        slots free, counters zeroed (a paged pool is audited for leaks first)."""
+        slots free, counters zeroed (a paged pool is audited for leaks first).
+        ``seed`` replaces the engine's seed, which reseeds the sampling generator."""
+        if seed is not None:
+            self.seed = seed
         self.slots = [_Slot() for _ in range(self.n_slots)]
+        self.cache = None  # released before the new cache is allocated, so a reset never holds two
         self.cache = init_cache(self.cfg, self.n_slots, self.max_seq, paged=self.layout, device=self.device)
         if self.layout is not None:
             if self.pool is not None:
@@ -255,8 +263,9 @@ class ServeEngine:
             dest_t, offs_t = self._page_rows(b, W, L)
             for big, tmpl in zip(self.cache["layers"], small["layers"]):
                 if "k_pool" in big:
-                    big["k_pool"][dest_t, offs_t] = tmpl["k"][0, :W].to(big["k_pool"].dtype)
-                    big["v_pool"][dest_t, offs_t] = tmpl["v"][0, :W].to(big["v_pool"].dtype)
+                    for src, dst in _POOL_KEYS:
+                        if dst in big:
+                            big[dst][dest_t, offs_t] = tmpl[src][0, :W].to(big[dst].dtype)
                 else:
                     _splice_row(big, tmpl, b)
             self._ship_table()
@@ -292,9 +301,10 @@ class ServeEngine:
     def preempt(self, slot: int) -> dict:
         """Evict an active slot: copy its live cache to host memory, release
         its pages back to the pool and return the resume token.  ``cache``
-        holds, per layer, the K/V rows of positions 0..pos-1 (attention) or
-        the slot's row of the recurrent state; :meth:`restore` copies them
-        back and re-seats the saved last token."""
+        holds, per layer, the K/V rows of positions 0..pos-1 and, in an int8
+        cache, their scale rows (attention), or the slot's row of the
+        recurrent state; :meth:`restore` copies them back and re-seats the
+        saved last token."""
         if not self.can_preempt(slot):
             raise RuntimeError(f"slot {slot} cannot be preempted (inactive, dense, or prefix past the prefill buffer)")
         st = self.slots[slot]
@@ -302,7 +312,7 @@ class ServeEngine:
         cache = []
         for big in self.cache["layers"]:
             if "k_pool" in big:
-                cache.append({key: big[key][dest_t, offs_t].cpu() for key in ("k_pool", "v_pool")})
+                cache.append({key: pool[dest_t, offs_t].cpu() for key, pool in big.items()})
             else:  # a copy, not a view of the row the next occupant overwrites
                 cache.append({key: buf[slot].to("cpu", copy=True) for key, buf in big.items()})
         self.pool.release(slot)

@@ -1,7 +1,7 @@
 """Trace-driven scenarios + fault injection (see ``schema``/``faults``/``campaign``).
 
-The port's copy of ``repro.traces``; the serving fault campaign
-(``serve_campaign``) waits for the port's router.
+The port's copy of ``repro.traces``, the serving fault campaign
+(``serve_campaign``, over the port's router) included.
 """
 
 from repro_torch.traces.faults import (
@@ -48,6 +48,10 @@ __all__ = [
     "run_campaign",
     "run_trial",
     "scenario_faults",
+    "ServeCampaignConfig",
+    "run_serve_campaign",
+    "run_serve_trial",
+    "serve_scenario_faults",
     "TraceSynthConfig",
     "synthesize_trace",
 ]
@@ -61,6 +65,15 @@ def __getattr__(name):
         from repro_torch.traces import campaign
 
         return getattr(campaign, name)
+    if name in (
+        "ServeCampaignConfig",
+        "run_serve_campaign",
+        "run_serve_trial",
+        "serve_scenario_faults",
+    ):
+        from repro_torch.traces import serve_campaign
+
+        return getattr(serve_campaign, name)
     if name in ("TraceSynthConfig", "synthesize_trace"):
         from repro_torch.traces import synth
 

@@ -537,6 +537,11 @@ FLASH_WGMMA = [(1, 130, 130, 4, 2, dh, True, None, 0.0, 0, 0, 0) for dh in HEAD_
     (1, 37, 101, 4, 1, 32, True, 50, 0.0, 64, 0, 0),
     (1, 65, 65, 2, 1, 256, False, None, 0.0, 0, 0, 0),
     (1, 2048, 2048, 15, 5, 64, True, None, 0.0, 0, 0, 0),
+    # the dense family's heads: gemma-7b's 16/16 of 256, yi-34b's group of 7,
+    # gemma3-27b's 1024-token window over a 1280-token prompt
+    (1, 130, 130, 16, 16, 256, True, None, 0.0, 0, 0, 0),
+    (1, 256, 256, 56, 8, 128, True, None, 0.0, 0, 0, 0),
+    (1, 1280, 1280, 32, 16, 128, True, 1024, 0.0, 0, 0, 0),
 ]
 
 
@@ -567,6 +572,7 @@ PAGED_EDGE = [
     ([37, 16, 0, 5], 15, 5, None, 0.0),  # smollm geometry, an empty slot
     ([40, 33, 1], 15, 5, 7, 30.0),  # window + softcap at G = 3
     ([9, 30], 8, 1, None, 0.0),  # MQA, G = 8
+    ([23, 40, 2], 56, 8, None, 0.0),  # yi-34b's heads, G = 7
 ]
 
 
@@ -602,6 +608,25 @@ def test_paged_cuda_int8_matches_plain(cuda, q_dtype):
     want = paged_attention_ref(*args, window=12)
     assert got.dtype == want.dtype == TORCH[q_dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[q_dtype], atol=TOL[q_dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+def test_paged_cuda_int8_at_gemma_7b_shape_matches_plain(cuda, q_dtype):
+    """gemma-7b's decode: 16 kv heads of 256 (G = 1), int8 pools with bf16
+    scales, page 16, so 64-token splits of 4 pages, slots past one split."""
+    q, kp, vp, table, lens = _paged_inputs([300, 17, 160, 0], 16, 16, Dh=256, n_pages=40, page_size=16, p_max=24,
+                                           seed=6)
+    (k_i, k_s), (v_i, v_s) = _quant_int8(kp), _quant_int8(vp)
+    args = (
+        _t(q, q_dtype, cuda), _t(k_i, device=cuda), _t(v_i, device=cuda), _t(table, device=cuda),
+        _t(lens, device=cuda), _t(k_s, "bfloat16", cuda), _t(v_s, "bfloat16", cuda),
+    )
+    assert pa.plan_splits(4, 16, 1, 24, 16, 256, 1).tile_tokens == 64
+    got = ops.paged_attention(*args)
+    want = paged_attention_ref(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[q_dtype], atol=TOL[q_dtype])
+    assert torch.equal(got[3], torch.zeros_like(got[3]))
 
 
 def _paged_long(dt, dh, device, seed=12):

@@ -311,9 +311,6 @@ def test_unported_archs_and_layers_raise():
         get_config("jamba-1.5-large-398b")
     from repro_torch.models.config import LayerSpec, MoEConfig
 
-    cfg = dataclasses.replace(smoke_config("smollm-360m"), kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        ttf.init_cache(cfg, 1, 8, device="cpu")
     moe = dataclasses.replace(
         smoke_config("smollm-360m"), block_pattern=(LayerSpec(moe=True),), moe=MoEConfig(4, 2, 32)
     )

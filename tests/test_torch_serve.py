@@ -215,7 +215,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.models.convert, repro_torch.launch.train, repro_torch.runtime.driver\n"
         "import repro_torch.dist.hetero_step, repro_torch.optim, repro_torch.core, repro_torch.data\n"
         "import repro_torch.checkpoint, repro_torch.obs, repro_torch.traces, repro_torch.traces.campaign\n"
-        "import repro_torch.traces.synth\n"
+        "import repro_torch.traces.synth, repro_torch.serve.router, repro_torch.traces.serve_campaign\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
