@@ -17,7 +17,8 @@ nonzero exit and no result line, if anything is wrong:
    head dim 16..256 and on ragged Sq/Sk off its 64-row tiles; both kernels
    at the dense family's shapes (``DENSE_FLASH_CASES``,
    ``DENSE_PAGED_CASES``: gemma-7b's int8 pools at head_dim 256, yi-34b's
-   group of 7, gemma3-27b's 1024-token window, musicgen-large's MHA).  The paged
+   group of 7, gemma3-27b's 1024-token window, musicgen-large's MHA,
+   jamba-1.5's group of 8 and olmoe-1b-7b's MHA at head_dim 128).  The paged
    kernel gives the same bits on repeated calls at the serving shape and at
    paged_scaling's (below), called at the two shapes in turn.
 3. Flash serve: ``ServeEngine(smollm-360m, attn_impl="flash")`` at full width
@@ -134,7 +135,7 @@ nonzero exit and no result line, if anything is wrong:
 14. Multi-process step, four ranks on the one card (``train_dist_gloo``):
     four spawned processes join a gloo group (NCCL refuses two ranks on one
     card), the ring's buffers staged through pinned host memory, and train
-    the same model and seq over v100, rtx2080ti x2, gtx1080ti, while mode,
+    the same model at 8 of its 32 layers (``CUTS``) and seq over v100, rtx2080ti x2, gtx1080ti, while mode,
     ring, ``fsdp="gather"``, 2 steps an epoch, 4 steps, ``fail@3:3`` (the
     group shrinks to 3 for the fourth step and the state is re-sharded).  Every rank's
     allocation trajectory and membership log equal the one-process run of
@@ -155,8 +156,8 @@ nonzero exit and no result line, if anything is wrong:
     takes the chunked WKV), the allocation trajectory of the CPU smoke run;
     peak memory logged.
 
-16. Router (``serve_router``): smollm-360m at full size behind
-    ``run_router``, two ``EngineReplica``s of paged engines (2 slots, page
+16. Router (``serve_router``): smollm-360m at full width and 8 of its 32
+    layers (``CUTS``) behind ``run_router``, two ``EngineReplica``s of paged engines (2 slots, page
     16, one bf16 weight copy shared by the fleet) at the paper's speeds of a
     GTX 1080 Ti and a V100, the reference's router study (32 requests, rate
     0.9, prompts 4..12, generations 6..20, seed 1, window 6), adaptive and
@@ -186,6 +187,26 @@ nonzero exit and no result line, if anything is wrong:
     caches + ``WORKING_BYTES``; the two routes' tokens, the paged route's
     tick profile and tokens/s logged.  ``dense_kernel_timing`` times the paged kernel on
     gemma-7b's int8 pools and flash at yi-34b's group of 7.
+20. The MoE, hybrid and embeds-input families (``serve_olmoe_1b_7b``,
+    ``serve_phi3_5_moe_42b_a6_6b``, ``serve_jamba_1_5_large_398b``,
+    ``serve_llava_next_mistral_7b``), as 19 at full width: olmoe-1b-7b (16
+    layers, 64 experts top-8, MHA 16/16 of 128 behind QK-norm),
+    phi3.5-moe at 28 of its 32 layers (16 experts top-2), jamba-1.5 at its
+    superblock's first 7 of 72 layers (Mamba, Mamba + 16-expert MoE, one
+    attention layer at G = 8), llava-next-mistral-7b (32 layers, prompts
+    of (L, 4096) float32 embeddings).  The geometry with experts and top-k;
+    flash launches = attention layers x prefills and paged launches =
+    attention layers x ticks (1 of jamba's 7 layers); a mid-generation
+    restore token-identical (jamba's Mamba rows, llava's embeddings
+    prompt); peak memory within weights + caches + 2 GB.  Where there are
+    experts, the flash prefill's check holds the plain prefill to the flash
+    prefill's expert choice (``moe_routes``): the two free runs may route a
+    token apart (bf16 rounds the attention routes apart and a gate near a
+    tie flips), so their gap, the tokens rerouted per layer and the
+    prefill's ``dropped_frac`` per layer are logged beside it; olmoe's check
+    is held again in float32 compute (27.7 GB), free-running.  Each model's
+    bytes floor of a decode tick (every weight, every expert: the einsum
+    dispatch runs them all) is its own line.
 
 The flash and paged rows of the kernels line count their launches on every
 serving path (``launches_by_path``); the weighted_accum row counts those of
@@ -200,6 +221,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -262,19 +284,24 @@ RWKV_CHECK_EVERY = 4
 PAGED_SCALING = dict(slots=32, lengths=(1536, 2048), seed=13, page_size=16, P=128, H=15, Hkv=5, Dh=64)
 # the dense family's kernel shapes, each kernel against its plain version: flash at gemma-7b's 16/16 heads
 # of 256, yi-34b's group of 7 (56/8 heads of 128), gemma3-27b's 1024-token window over a 1280-token prompt
-# (32/16 heads of 128) and musicgen-large's 32/32 heads of 64 (B, Sq, Sk, H, Hkv, Dh, causal, window, softcap,
-# q_offset); paged at 4 slots, page 16: gemma-7b's int8 pools at head_dim 256, yi-34b's group of 7 and
-# gemma3-27b's window at 1.1k to 1.2k tokens (label: lengths, H, Hkv, Dh, window, int8 pools)
+# (32/16 heads of 128), musicgen-large's 32/32 heads of 64, jamba-1.5's group of 8 (64/8 heads of 128) and
+# olmoe-1b-7b's MHA at 16/16 heads of 128 (B, Sq, Sk, H, Hkv, Dh, causal, window, softcap, q_offset); paged at
+# 4 slots, page 16: gemma-7b's int8 pools at head_dim 256, yi-34b's group of 7, gemma3-27b's window at 1.1k to
+# 1.2k tokens, jamba's group of 8 and olmoe's MHA (label: lengths, H, Hkv, Dh, window, int8 pools)
 DENSE_FLASH_CASES = {
     "gemma-7b": (1, 256, 256, 16, 16, 256, True, None, 0.0, 0),
     "yi-34b G=7": (1, 256, 256, 56, 8, 128, True, None, 0.0, 0),
     "gemma3-27b window 1024": (1, 1280, 1280, 32, 16, 128, True, 1024, 0.0, 0),
     "musicgen-large": (1, 256, 256, 32, 32, 64, True, None, 0.0, 0),
+    "jamba-1.5 G=8": (1, 256, 256, 64, 8, 128, True, None, 0.0, 0),
+    "olmoe-1b-7b MHA 16/16 Dh 128": (1, 256, 256, 16, 16, 128, True, None, 0.0, 0),
 }
 DENSE_PAGED_CASES = {
     "gemma-7b int8 pools": ([300, 17, 160, 64], 16, 16, 256, None, True),
     "yi-34b G=7": ([300, 17, 160, 64], 56, 8, 128, None, False),
     "gemma3-27b window 1024": ([1224, 1100, 300, 2], 32, 16, 128, 1024, False),
+    "jamba-1.5 G=8": ([300, 17, 160, 64], 64, 8, 128, None, False),
+    "olmoe-1b-7b MHA 16/16 Dh 128": ([300, 17, 160, 64], 16, 16, 128, None, False),
 }
 PAGED_CASES = [  # tests/test_kernels.py PAGED_CASES: lengths, H, Hkv, window, softcap
     ([10, 3, 0], 4, 2, None, 0.0),
@@ -1405,6 +1432,8 @@ DIST_GLOO = dict(arch="smollm-360m", steps=4, micro_bs=1, total_micro=4, n_worke
                  hetero_gpus="v100,rtx2080ti,rtx2080ti,gtx1080ti", steps_per_epoch=2, policy="adaptive",
                  mode="while", fsdp="gather", events="fail@3:3", seed=0, device="cuda", verbose=False)
 DIST_RANKS = 4
+DIST_GLOO_LAYERS = 8  # smollm-360m's 32 layers cut to 8 at full width for the script's time (CUTS)
+ROUTER_LAYERS = 8  # serve_router's and serve_router_faults' engines: smollm-360m at 8 of 32 layers (CUTS)
 # four ranks vs one process after 4 steps: per tensor ||a - b|| / ||b|| of the parameters and AdamW moments.
 # Only the order of the cross-rank sums differs (float32 rounding, about 1e-6); a chunk the ring dropped or
 # added twice moves a rank's share (about a quarter) of that chunk's gradient, and so of mu and nu, which
@@ -1420,6 +1449,12 @@ TRAIN_SEQ = 512
 # what the script cuts of earlier paths to fit its time, printed at its start
 CUTS = {
     "train, train_masked, train_measured, train_resume, train_dist, train_rwkv": f"seq {TRAIN_SEQ}, not 2048",
+    "train_dist_gloo": f"smollm-360m at {DIST_GLOO_LAYERS} of its 32 layers, full width",
+    "serve_router, serve_router_faults": f"the fleets' smollm-360m engines at {ROUTER_LAYERS} of 32 layers, "
+                                         "full width",
+    "serve_phi3_5_moe_42b_a6_6b": "28 of 32 layers (73.3 GB of bf16 weights), full width",
+    "serve_jamba_1_5_large_398b": "7 of 72 layers, the superblock's first 7 (M, ME, M, ME, A, ME, M), 70.3 GB, "
+                                  "full width",
     "rwkv_serve prefill checks": f"every {RWKV_CHECK_EVERY}th of the 16 workload prompts",
     "rwkv_activation_cost": "5 steady decode ticks a run, no serve of the workload; its port runs are the "
                             "rwkv decode profile",
@@ -1430,6 +1465,16 @@ def _seq_cfg(arch):
     from repro_torch.configs import get_config
 
     return dataclasses.replace(get_config(arch), max_seq=TRAIN_SEQ)
+
+
+def _dist_gloo_cfg():
+    return dataclasses.replace(_seq_cfg("smollm-360m"), n_layers=DIST_GLOO_LAYERS)
+
+
+def _n_params(cfg):
+    from repro_torch.models import Transformer
+
+    return sum(p.numel() for p in Transformer(cfg, device="meta").parameters())
 
 
 def _ring_plan(n):
@@ -1443,7 +1488,7 @@ def _ring_plan(n):
     from repro_torch.dist.sharding import param_specs
     from repro_torch.models import Transformer
 
-    cfg = _seq_cfg("smollm-360m")
+    cfg = _dist_gloo_cfg()
     skeleton = Transformer(cfg, device="meta")
     specs = param_specs(skeleton, {"data": n, "model": 1}, cfg, fsdp=True)
     axes = [tuple(ax for _, names in spec_dims(spec, p.ndim) for ax in names)
@@ -1519,7 +1564,7 @@ def _dist_rank(rank, world, store, out_dir):
     try:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        tr = ElasticTrainer(DriverConfig(**DIST_GLOO), model_cfg=_seq_cfg("smollm-360m"))
+        tr = ElasticTrainer(DriverConfig(**DIST_GLOO), model_cfg=_dist_gloo_cfg())
         local = sum(p.numel() for p in tr.state["params"].parameters()) + sum(
             t.numel() for key in ("mu", "nu") for t in tr.state["opt"][key])
         torch.cuda.synchronize()
@@ -1528,7 +1573,7 @@ def _dist_rank(rank, world, store, out_dir):
         torch.cuda.synchronize()
         out = {
             "rank": rank, "device": str(device), "backend": dist.get_backend(), "init_s": init_s,
-            "state_ratio": local / (3 * SMOLLM_PARAMS), "losses": tr.losses, "step_log": tr.step_log,
+            "state_ratio": local / (3 * _n_params(_dist_gloo_cfg())), "losses": tr.losses, "step_log": tr.step_log,
             "memberships": res["memberships"], "epoch_allocs": [e["alloc"] for e in res["epoch_log"]],
             "final_allocation": res["final_allocation"], "launches": ops.launch_counts(),
             "ring_bytes": tr.comm.ring_bytes, "reduce_steps": tr.comm.reduce_steps, "collective_s": tr.comm.seconds,
@@ -1554,7 +1599,7 @@ def phase_train_dist_gloo():
     from repro_torch.runtime.driver import DriverConfig, ElasticTrainer
 
     t0 = time.perf_counter()
-    one = ElasticTrainer(DriverConfig(**DIST_GLOO), model_cfg=_seq_cfg("smollm-360m"))
+    one = ElasticTrainer(DriverConfig(**DIST_GLOO), model_cfg=_dist_gloo_cfg())
     ones = one.run()
     want = {"losses": one.losses, "allocs": [r["alloc"] for r in one.step_log], "memberships": ones["memberships"],
             "epoch_allocs": [e["alloc"] for e in ones["epoch_log"]], "final_allocation": ones["final_allocation"]}
@@ -1691,11 +1736,13 @@ ROUTER_FAULT_PROMPT_SEED = 7
 
 
 def _requests_from(spec, vocab):
-    """Fresh Request objects of a (rid, prompt, max_gen, arrival) list, prompts taken mod ``vocab``
-    (the smoke config's 512 on the CPU): the router's runs mutate their requests."""
+    """Fresh Request objects of a (rid, prompt, max_gen, arrival) list, token-id prompts taken mod
+    ``vocab`` (the smoke config's 512 on the CPU), embedding prompts as they are: the router's runs
+    mutate their requests."""
     from repro_torch.serve import Request
 
-    return [Request(rid=rid, prompt=prompt % vocab, max_gen=g, arrival=a) for rid, prompt, g, a in spec]
+    return [Request(rid=rid, prompt=prompt if prompt.ndim == 2 else prompt % vocab, max_gen=g, arrival=a)
+            for rid, prompt, g, a in spec]
 
 
 def _router_fleet(cfg, params, device, speeds, timed=None):
@@ -1893,6 +1940,20 @@ DENSE = {
     "yi-34b": dict(geometry=(60, 7168, 56, 8, 128, 64000), max_seq=320, long_prompt=None),
     "musicgen-large": dict(geometry=(48, 2048, 32, 32, 64, 2048), max_seq=320, long_prompt=None),
 }
+# the MoE, hybrid and embeds-input families at full width: the geometry as above with n_layers as run,
+# (experts, top-k), and the depth cut where the model does not fit one card with its caches and the
+# working allowance (phi3.5-moe: 28 of 32 layers, 73.3 GB; jamba-1.5: the 8-layer superblock's first 7,
+# (M, ME, M, ME, A, ME, M), 70.3 GB, where the whole model needs at least ten cards)
+MOE_HYBRID = {
+    "olmoe-1b-7b": dict(geometry=(16, 2048, 16, 16, 128, 50304), experts=(64, 8), n_layers=None, max_seq=320,
+                        long_prompt=None, f32_check=True),
+    "phi3.5-moe-42b-a6.6b": dict(geometry=(28, 4096, 32, 8, 128, 32064), experts=(16, 2), n_layers=28,
+                                 max_seq=320, long_prompt=None),
+    "jamba-1.5-large-398b": dict(geometry=(7, 8192, 64, 8, 128, 65536), experts=(16, 2), n_layers=7,
+                                 max_seq=320, long_prompt=None),
+    "llava-next-mistral-7b": dict(geometry=(32, 4096, 32, 8, 128, 32000), experts=None, n_layers=None,
+                                  max_seq=320, long_prompt=None),
+}
 DENSE_SLOTS = 4
 DENSE_WORKLOAD = dict(n_requests=6, rate=0.0, prompt_len=(16, 256), gen_len=(8, 16), seed=0)
 WORKING_BYTES = 2e9  # what an engine may take beyond its weights and caches
@@ -1917,24 +1978,46 @@ def _free_card():
     return {"free_gb": free / 1e9, "total_gb": total / 1e9, "allocated_gb": torch.cuda.memory_allocated() / 1e9}
 
 
-def phase_serve_dense(arch):
-    """One architecture of the dense family at its full published
-    configuration (random bf16 weights from seed 0), shared by a flash and a
-    paged engine of 4 slots: geometry, the flash prefill against the plain
-    attention, launches a prefill and a tick, the two routes' tokens, a
-    forced preempt/restore, and peak memory against weights + caches +
-    WORKING_BYTES."""
+def _serve_phase(arch):
+    return "serve_" + re.sub(r"[^a-z0-9]+", "_", arch)
+
+
+def _prompt_tensor(prompt, bucket):
+    """A (1, bucket) token tensor, or a (1, bucket, d) float32 one for an embeddings prompt, right-padded."""
+    L = len(prompt)
+    if prompt.ndim == 2:
+        x = torch.zeros((1, bucket, prompt.shape[1]), dtype=torch.float32, device="cuda")
+        x[0, :L] = torch.from_numpy(prompt)
+    else:
+        x = torch.zeros((1, bucket), dtype=torch.long, device="cuda")
+        x[0, :L] = torch.from_numpy(prompt.astype(np.int64))
+    return x
+
+
+def phase_serve_model(arch):
+    """One architecture at its full published width (``DENSE``, ``MOE_HYBRID``;
+    depth as listed there), random bf16 weights from seed 0, shared by a
+    flash and a paged engine of 4 slots: geometry, the flash prefill against
+    the plain attention, launches a prefill and a tick (one per attention
+    layer), the two routes' tokens, a forced preempt/restore, and peak memory
+    against weights + caches + WORKING_BYTES."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import init_params, prefill
-    from repro_torch.serve import SchedulerConfig, ServeEngine, WorkloadConfig, bucket_len, serve_loop, synthesize
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serve import SchedulerConfig, ServeEngine, WorkloadConfig, serve_loop, synthesize
 
-    name = f"serve_{arch.replace('-', '_')}"
-    d = DENSE[arch]
+    name = _serve_phase(arch)
+    d = DENSE.get(arch) or MOE_HYBRID[arch]
     cfg = get_config(arch)
+    if d.get("n_layers"):
+        cfg = dataclasses.replace(cfg, n_layers=d["n_layers"])
     geometry = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.vocab_size)
-    check(geometry == d["geometry"], f"{arch} at full width and depth: {geometry}")
+    check(geometry == d["geometry"], f"{arch} at full width: {geometry}")
+    experts = (cfg.moe.n_experts, cfg.moe.top_k) if cfg.moe else None
+    check(experts == d.get("experts"), f"{arch}: experts and top-k {experts}")
     check(cfg.kv_cache_dtype == ("int8" if arch == "gemma-7b" else "compute"), f"{arch}: kv_cache_dtype")
+    kinds = [(s.kind, s.moe) for s in cfg.layer_specs()]
+    n_attn = sum(kind == "attn" for kind, _ in kinds)
     before = _free_card()
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
@@ -1942,10 +2025,16 @@ def phase_serve_dense(arch):
     n_params = sum(p.numel() for p in params.parameters())
     weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     log(phase=f"{name}_init", params=n_params, weight_gb=weight_bytes / 1e9, seconds=time.perf_counter() - t0,
-        memory_before=before, memory_after=_free_card())
+        memory_before=before, memory_after=_free_card(), layers=[f"{k}{'+moe' if m else ''}" for k, m in kinds])
+    # a decode tick reads every weight once (the einsum dispatch runs every expert on its capacity
+    # buffer), but an untied embedding table, of which the lookup reads one row a slot
+    read_bytes = weight_bytes - (0 if cfg.tie_embeddings else params.embed.numel() * params.embed.element_size())
+    log(phase=f"{name}_tick_floor", weights_read_gb=read_bytes / 1e9, floor_ms=read_bytes / PEAK_BYTES * 1e3,
+        note="the bytes a decode tick must read, every expert included, over 3.35 TB/s")
 
+    embed_dim = cfg.d_model if cfg.embeds_input else None
     spec = [(r.rid, r.prompt, r.max_gen, r.arrival)
-            for r in synthesize(WorkloadConfig(vocab_size=cfg.vocab_size, **DENSE_WORKLOAD))]
+            for r in synthesize(WorkloadConfig(vocab_size=cfg.vocab_size, **DENSE_WORKLOAD), embed_dim=embed_dim)]
     if d["long_prompt"]:
         long = np.random.default_rng(1).integers(0, cfg.vocab_size, d["long_prompt"]).astype(np.int32)
         spec[0] = (0, long, spec[0][2], 0.0)
@@ -1953,7 +2042,7 @@ def phase_serve_dense(arch):
     def requests():
         return _requests_from(spec, cfg.vocab_size)
 
-    out, launches, peaks = {}, {}, {}
+    out, launches, peaks, stats = {}, {}, {}, {}
     for impl in ("flash", "paged"):
         torch.cuda.reset_peak_memory_stats()
         kw = dict(page_size=16) if impl == "paged" else {}
@@ -1963,20 +2052,7 @@ def phase_serve_dense(arch):
         # the template and the batch-1 cache a prefill writes from it
         cache_bytes = _tensor_bytes(eng.cache) + 2 * _tensor_bytes(eng._fresh1)
         if impl == "flash":  # the first prompt (gemma3: the long one) through flash and through the plain attention
-            prompt = spec[0][1]
-            L = len(prompt)
-            toks = torch.zeros((1, bucket_len(L)), dtype=torch.long, device="cuda")
-            toks[0, :L] = torch.from_numpy(prompt.astype(np.int64))
-            lengths = torch.tensor([L], dtype=torch.int32, device="cuda")
-            lf = prefill(eng.params, eng._fresh1, toks, lengths, cfg, "flash")[0]  # its cache dropped at once
-            ln = prefill(eng.params, eng._fresh1, toks, lengths, cfg, "naive")[0]
-            rel = _rel_err(lf, ln)
-            log(phase=f"{name}_flash_prefill_check", prompt_len=L, bucket=bucket_len(L), rel_err=rel,
-                rtol=LOGITS_RTOL, top1_flash=int(lf.argmax()), top1_plain=int(ln.argmax()))
-            check(rel <= LOGITS_RTOL and bool(torch.isfinite(lf).all() and torch.isfinite(ln).all()),
-                  f"{name}: flash prefill logits vs plain attention")
-            prefill_gap = rel
-            del lf, ln
+            prefill_gap = _flash_prefill_check(eng.params, eng._fresh1, cfg, spec[0][1], name, stats)
         reqs = requests()
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -1988,17 +2064,19 @@ def phase_serve_dense(arch):
         out[impl] = {r.rid: r.output for r in reqs}
         log(phase=f"{name}_{impl}", requests=len(reqs), completed=summary["completed"], ticks=summary["ticks"],
             prefills=summary["prefills"], gen_tokens=summary["gen_tokens"], wall_s=wall,
-            tok_per_s=summary["gen_tokens"] / wall, launches=launches[impl],
+            tok_per_s=summary["gen_tokens"] / wall, launches=launches[impl], attention_layers=n_attn,
             prompt_lens=[len(r.prompt) for r in reqs])
         check(summary["completed"] == len(spec) and all(len(r.output) == r.max_gen for r in reqs),
               f"{name} {impl}: every request completed")
         check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.output), f"{name} {impl}: tokens in the vocab")
         if impl == "flash":
-            check(launches[impl]["flash_attention"] == cfg.n_layers * summary["prefills"] > 0
-                  and launches[impl]["paged_attention"] == 0, f"{name}: flash launches = n_layers a prefill")
+            check(launches[impl]["flash_attention"] == n_attn * summary["prefills"] > 0
+                  and launches[impl]["paged_attention"] == 0,
+                  f"{name}: flash launches = {n_attn} attention layers x {summary['prefills']} prefills")
         else:
-            check(launches[impl]["paged_attention"] == cfg.n_layers * summary["ticks"] > 0
-                  and launches[impl]["flash_attention"] == 0, f"{name}: paged launches = n_layers a tick")
+            check(launches[impl]["paged_attention"] == n_attn * summary["ticks"] > 0
+                  and launches[impl]["flash_attention"] == 0,
+                  f"{name}: paged launches = {n_attn} attention layers x {summary['ticks']} ticks")
             victim_ok = _dense_preempt_case(eng, cfg, out[impl], requests, name)
             check(victim_ok, f"{name}: a request restored mid-generation continues token-identically")
             profile_reqs = requests()  # the decode route's ticks (the flash route decodes as smollm's flash serve)
@@ -2018,13 +2096,71 @@ def phase_serve_dense(arch):
                   for rid in out["flash"] if rid not in agree}
     log(phase=name, params=n_params, geometry=dict(zip(("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
                                                          "vocab"), geometry)),
-        kv_cache_dtype=cfg.kv_cache_dtype, sliding_window=cfg.sliding_window if arch == "gemma3-27b" else None,
+        experts=experts, attention_layers=n_attn, kv_cache_dtype=cfg.kv_cache_dtype,
+        sliding_window=cfg.sliding_window if arch == "gemma3-27b" else None,
         routes_agree=len(agree), requests=len(spec), first_divergence=first_diff, prefill_logit_gap=prefill_gap,
-        memory=peaks, note="flash: dense cache (ring of the window on gemma3's local layers), flash prefill; "
-        "paged: pools keep every position, naive prefill, the kernel masks by window")
+        memory=peaks, **stats, note="flash: dense cache (ring of the window on gemma3's local layers), flash "
+        "prefill; paged: pools keep every position, naive prefill, the kernel masks by window")
     del params
     _free_card()
+    if d.get("f32_check"):  # the flash kernel's float32 route in the whole model, where routing does not flip
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+        p32 = init_params(cfg32, seed=0, device="cuda")
+        fresh = init_cache(cfg32, 1, d["max_seq"], device="cuda")
+        stats32 = {}
+        gap32 = _flash_prefill_check(p32, fresh, cfg32, spec[0][1], f"{name}_float32", stats32, held=False)
+        log(phase=f"{name}_float32", params=n_params, weights_gb=sum(p.numel() * 4 for p in p32.parameters()) / 1e9,
+            prefill_logit_gap=gap32, **stats32)
+        del p32, fresh
+        _free_card()
     return {"flash": launches["flash"]["flash_attention"], "paged": launches["paged"]["paged_attention"]}
+
+
+def _routing_flips(a, b, L):
+    """Tokens (of the first ``L``, the real ones) whose expert choice differs between two prefills'
+    MoE metrics, per layer, and the number that differ in at least one layer."""
+    moved = torch.stack([(ma["top_idx"][0, :L].sort(-1).values != mb["top_idx"][0, :L].sort(-1).values).any(-1)
+                         for ma, mb in zip(a, b, strict=True)])  # (MoE layers, L)
+    return moved.sum(-1).tolist(), int(moved.any(0).sum())
+
+
+def _flash_prefill_check(params, fresh, cfg, prompt, name, stats, held=True):
+    """One prompt's prefill through flash and through the plain attention; returns the gated gap
+    (max |diff| / max |logit|).  Where the model has MoE layers, the two free runs may route a token
+    to other experts (bf16 rounds the two attention routes apart, and a gate near a tie flips): the
+    flips are counted and the free gap logged, and, with ``held``, the gate is the plain prefill
+    routed by the flash prefill's expert choice (``moe_routes``), so that the attention route is
+    all that differs."""
+    from repro_torch.models import prefill
+    from repro_torch.serve import bucket_len
+
+    L = len(prompt)
+    toks = _prompt_tensor(prompt, bucket_len(L))
+    lengths = torch.tensor([L], dtype=torch.int32, device="cuda")
+    moe_f, moe_n = [], []
+    lf = prefill(params, fresh, toks, lengths, cfg, "flash", moe_metrics=moe_f)[0]  # its cache dropped at once
+    ln = prefill(params, fresh, toks, lengths, cfg, "naive", moe_metrics=moe_n)[0]
+    free = _rel_err(lf, ln)
+    row = dict(prompt_len=L, bucket=bucket_len(L), rtol=LOGITS_RTOL, top1_flash=int(lf.argmax()),
+               top1_plain=int(ln.argmax()), embeddings_prompt=prompt.ndim == 2, dtype=str(cfg.compute_dtype))
+    gap, finite = free, bool(torch.isfinite(lf).all() and torch.isfinite(ln).all())
+    if cfg.moe:
+        per_layer, tokens = _routing_flips(moe_f, moe_n, L)
+        row.update(free_rel_err=free, routing_flips_by_layer=per_layer, tokens_rerouted=tokens,
+                   dropped_frac_by_layer={"flash": [float(m["dropped_frac"]) for m in moe_f],
+                                          "plain": [float(m["dropped_frac"]) for m in moe_n]})
+        stats.update(prefill_free_gap=free, prefill_tokens_rerouted=tokens,
+                     prefill_dropped_frac=row["dropped_frac_by_layer"])
+        if held:
+            moe_h = []
+            lh = prefill(params, fresh, toks, lengths, cfg, "naive", moe_metrics=moe_h,
+                         moe_routes=[m["top_idx"] for m in moe_f])[0]
+            check(_routing_flips(moe_f, moe_h, L)[1] == 0, f"{name}: the held prefill routes as the flash one")
+            gap, finite = _rel_err(lf, lh), finite and bool(torch.isfinite(lh).all())
+            row.update(held_rel_err=gap, top1_held=int(lh.argmax()))
+    log(phase=f"{name}_flash_prefill_check", rel_err=gap, **row)
+    check(gap <= LOGITS_RTOL and finite, f"{name}: flash prefill logits vs plain attention ({gap})")
+    return gap
 
 
 def _dense_preempt_case(eng, cfg, baseline, requests, name):
@@ -2347,15 +2483,20 @@ def main() -> int:
     paged_launches = {"paged_serve": timed("paged_serve", phase_paged_serve, cfg, params)["paged_attention"]}
     torch.cuda.empty_cache()
     paged_launches["serve_trace"] = timed("serve_trace", phase_serve_trace, cfg, params)
-    paged_launches["serve_router"] = timed("serve_router", phase_serve_router, cfg, params)
-    paged_launches["serve_router_faults"] = timed("serve_router_faults", phase_serve_router_faults, cfg, params)
     del params
     torch.cuda.empty_cache()
+    router_cfg = dataclasses.replace(cfg, n_layers=ROUTER_LAYERS)
+    router_params = init_params(router_cfg, seed=0, device="cuda")
+    paged_launches["serve_router"] = timed("serve_router", phase_serve_router, router_cfg, router_params)
+    paged_launches["serve_router_faults"] = timed("serve_router_faults", phase_serve_router_faults, router_cfg,
+                                                  router_params)
+    del router_params
+    torch.cuda.empty_cache()
     paged_launches["serve_campaign"] = timed("serve_campaign", phase_serve_campaign)
-    for arch in DENSE:
-        dense = timed(f"serve_{arch.replace('-', '_')}", phase_serve_dense, arch)
-        flash_launches[f"serve_{arch}"] = dense["flash"]
-        paged_launches[f"serve_{arch}"] = dense["paged"]
+    for arch in [*DENSE, *MOE_HYBRID]:
+        served = timed(_serve_phase(arch), phase_serve_model, arch)
+        flash_launches[f"serve_{arch}"] = served["flash"]
+        paged_launches[f"serve_{arch}"] = served["paged"]
     rwkv_launches = timed("rwkv_serve", phase_rwkv_serve)
     torch.cuda.empty_cache()
     accum_counts, _ = timed("train", phase_train)

@@ -1,10 +1,10 @@
 """Architecture registry of the port: ``get_config(arch_id)`` + reduced smoke configs.
 
-Only the architectures whose every layer the port can run are registered:
-the dense family (smollm-360m, gemma-7b with its int8 KV cache, gemma3-27b,
-yi-34b, musicgen-large) and rwkv6-1.6b.  The rest of the reference registry
-(``repro.configs``: llava's embedding inputs, the MoE, Mamba and hybrid
-families) joins slice by slice.  ``smoke_config`` is the reference's shrink
+Every architecture of the reference registry (``repro.configs``) is
+registered, in its order: the MoE family (phi3.5-moe, olmoe), rwkv6, the
+Mamba+attention hybrid jamba, the dense family (smollm-360m, gemma3-27b,
+yi-34b, gemma-7b with its int8 KV cache, musicgen-large) and llava, whose
+backbone takes embedding inputs.  ``smoke_config`` is the reference's shrink
 rule, unchanged (the MoE, Mamba and RWKV sub-configs shrink too, a pattern's
 tail layer stays), so a smoke config here equals the JAX side's field for
 field.  The assigned shape set (``configs.shapes``) is the reference's.
@@ -14,7 +14,18 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import gemma3_27b, gemma_7b, musicgen_large, rwkv6_1p6b, smollm_360m, yi_34b
+from repro_torch.configs import (
+    gemma3_27b,
+    gemma_7b,
+    jamba_1p5_large,
+    llava_next_mistral_7b,
+    musicgen_large,
+    olmoe_1b_7b,
+    phi35_moe_42b,
+    rwkv6_1p6b,
+    smollm_360m,
+    yi_34b,
+)
 from repro_torch.configs.shapes import LONG_CONTEXT_ARCHS, SHAPES, ShapeSpec, runnable_shapes, skip_reason
 from repro_torch.models.config import ModelConfig
 
@@ -31,7 +42,18 @@ __all__ = [
     "skip_reason",
 ]
 
-_MODULES = [rwkv6_1p6b, smollm_360m, gemma3_27b, yi_34b, gemma_7b, musicgen_large]
+_MODULES = [
+    phi35_moe_42b,
+    olmoe_1b_7b,
+    rwkv6_1p6b,
+    jamba_1p5_large,
+    smollm_360m,
+    gemma3_27b,
+    yi_34b,
+    gemma_7b,
+    musicgen_large,
+    llava_next_mistral_7b,
+]
 
 ARCHS: dict[str, ModelConfig] = {m.ARCH_ID: m.CONFIG for m in _MODULES}
 _ACCUM: dict[str, int] = {m.ARCH_ID: m.TRAIN_ACCUM for m in _MODULES}
@@ -43,7 +65,7 @@ def list_archs() -> list[str]:
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCHS:
-        raise KeyError(f"arch {arch_id!r} is not ported yet; ported: {list(ARCHS)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {list(ARCHS)}")
     return ARCHS[arch_id]
 
 

@@ -20,8 +20,13 @@ dense per-slot cache (``flash`` runs the CUDA flash kernel on the card);
 ``paged`` switches the KV layout to the shared page pool and decodes through
 the CUDA paged kernel.  ``blocked`` is ported for the training slice only.
 
+llava's prompts are (L, d_model) float32 embeddings (``embed_dim``), as the
+reference CLI draws them.  ``--n-layers`` (the port's own flag) serves the
+first N layers of a config at full width, for a model too deep for one card.
+
 Example (on a card; add ``--device cpu`` to run the plain versions on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --attn-impl paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --n-layers 7 --attn-impl paged
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --smoke \
       --attn-impl paged --page-size 8 --slots 8 --requests 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --smoke \
@@ -31,6 +36,7 @@ Example (on a card; add ``--device cpu`` to run the plain versions on the CPU):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
@@ -97,6 +103,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--trace-out", default=None, help="write a Perfetto trace-event JSON")
     ap.add_argument("--metrics-out", default=None, help="write a metrics snapshot JSON (repro.obs.metrics/v1)")
     ap.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    ap.add_argument(
+        "--n-layers", type=int, default=0,
+        help="serve the first N layers of the config at full width (0 = all): a model too deep for one "
+        "card, phi3.5-moe-42b-a6.6b at 28 or jamba-1.5-large-398b at 7 on an 80 GB H100",
+    )
     args = ap.parse_args(argv)
 
     if args.attn_impl == "blocked":
@@ -129,6 +140,10 @@ def main(argv=None) -> dict:
             "the longest request could not be admitted"
         )
     cfg = smoke_config(args.arch, seq=max(max_seq, worst_case)) if args.smoke else get_config(args.arch)
+    if args.n_layers:
+        if not 0 < args.n_layers <= cfg.n_layers:
+            ap.error(f"--n-layers {args.n_layers} is not within 1..{cfg.n_layers}")
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     device = resolve_device(args.device)
     params = init_params(cfg, args.seed, device)
     engine = ServeEngine(
@@ -149,10 +164,11 @@ def main(argv=None) -> dict:
             f"worst-case request ({args.prompt_lens[1]} + {args.gen_lens[1]} tokens) "
             f"does not fit the page pool — raise --pool-pages"
         )
+    embed_dim = cfg.d_model if cfg.embeds_input else None  # llava: (L, d) embedding prompts
     if trace is not None:
         requests = to_requests(
             trace, vocab_size=cfg.vocab_size, seed=args.seed, time_scale=args.trace_time_scale,
-            limit=args.requests or None,
+            limit=args.requests or None, embed_dim=embed_dim,
         )
     else:
         wl = WorkloadConfig(
@@ -163,7 +179,7 @@ def main(argv=None) -> dict:
             vocab_size=cfg.vocab_size,
             seed=args.seed,
         )
-        requests = synthesize(wl)
+        requests = synthesize(wl, embed_dim=embed_dim)
     obs = ServeObs(trace_out=args.trace_out, metrics_out=args.metrics_out) if args.trace_out or args.metrics_out else None
     summary = serve_loop(
         engine,

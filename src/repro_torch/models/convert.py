@@ -12,7 +12,11 @@ execution order.  Nested dicts map to submodules: a LayerNorm's
 ``{"gain", "bias"}`` (``final_norm``, ``norm1``, an RWKV layer's ``ln1``)
 becomes ``final_norm.gain``/``final_norm.bias``, and an RWKV layer's
 ``params["body"]["layer0"]["rwkv"]["ln1"]["gain"][rep]`` is the port's
-``layers[rep].rwkv.ln1.gain``.
+``layers[rep].rwkv.ln1.gain``.  An MoE ffn's expert stack is (E, d_in,
+d_out) on both sides, so the body's leaf is (R, E, d_in, d_out); a Mamba
+mixer's leaves (``in_proj``, ``A_log``, ...) map like an attention
+mixer's.  A config of fewer layers than its pattern (jamba cut to 7 of its
+8-layer superblock) has no body: every layer sits in ``params["tail"]``.
 
 The train state crosses too (``train_state_from_jax``/``train_state_to_jax``):
 the optimizer's per-parameter trees (AdamW ``mu``/``nu``, SGD ``velocity``)

@@ -1,12 +1,16 @@
 """Decoder-LM assembly: parameters, ``forward``/``loss_fn`` for training, caches, ``prefill`` and ``decode_step``.
 
-The port of ``repro.models.transformer`` for attention layers with dense
-MLPs and for RWKV6 layers, under RMSNorm or LayerNorm: the dense family
-(smollm, gemma and gemma3, yi, musicgen; the KV cache in the compute dtype
-or int8) and rwkv6.  The layer stack is a ``ModuleList`` walked by a Python
-loop where the reference scans over its pattern-stacked ``body``; the cache
-likewise holds one dict per layer.  Mamba and MoE layers, and embedding
-inputs (llava), raise ``NotImplementedError`` until their slice.
+The port of ``repro.models.transformer`` for every architecture of the
+registry: attention layers (the KV cache in the compute dtype or int8),
+Mamba layers and RWKV6 layers, each attention or Mamba layer with a dense
+MLP or a Mixture-of-Experts ffn, under RMSNorm or LayerNorm.  The layer
+stack is a ``ModuleList`` walked by a Python loop where the reference scans
+over its pattern-stacked ``body``; the cache likewise holds one dict per
+layer.  With ``cfg.embeds_input`` (llava) ``forward`` and ``prefill`` take
+(B, S, d) float embeddings in place of token ids; ``decode_step`` takes the
+sampled token's id, whose embedding row is what the reference's engine
+feeds its decode step.  The MoE auxiliary losses of every MoE layer are
+summed into ``forward``'s ``moe_aux``, which ``loss_fn`` adds.
 
 Public entry points:
   init_params / compute_copy            parameters (seeded) and their compute-dtype copy
@@ -24,10 +28,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import dense_init_, embed, make_norm, norm_apply
 from repro_torch.models.mlp import MLP, mlp_apply
+from repro_torch.models.moe import MoE, moe_apply
 
 __all__ = [
     "Block",
@@ -42,24 +48,15 @@ __all__ = [
 ]
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    for spec in cfg.layer_specs():
-        if spec.kind == "mamba":
-            raise NotImplementedError("mamba layers wait for the Mamba and MoE slice of the port")
-        if spec.moe:
-            raise NotImplementedError("MoE layers wait for the Mamba and MoE slice of the port")
-    if cfg.embeds_input:
-        raise NotImplementedError("embedding inputs wait for a later slice of the port")
-
-
 def _zero_norm(norm: nn.Module | nn.Parameter) -> None:
     for param in [norm] if isinstance(norm, nn.Parameter) else norm.parameters():
         param.zero_()  # (1 + g) gains and biases start at zero
 
 
 class Block(nn.Module):
-    """One layer.  Attention with a dense MLP: ``norm1``, ``mixer``, ``norm2``,
-    ``ffn`` (and ``norm1_post``/``norm2_post`` with ``post_block_norm``); each
+    """One layer.  Attention or Mamba: ``norm1``, ``mixer`` (``Attention`` or
+    ``Mamba``), ``norm2``, ``ffn`` (``MLP``, or ``MoE`` where the spec says
+    so), and ``norm1_post``/``norm2_post`` with ``post_block_norm``; each
     norm is a (d,) RMSNorm gain or a ``LayerNorm`` gain/bias pair.  RWKV6:
     only ``rwkv``, which carries its own norms and both residuals."""
 
@@ -73,8 +70,8 @@ class Block(nn.Module):
         self.norms = ["norm1", "norm2"] + (["norm1_post", "norm2_post"] if cfg.post_block_norm else [])
         for name in self.norms:
             setattr(self, name, make_norm(cfg.norm, cfg.d_model, cfg.dtype("param"), device))
-        self.mixer = attn_lib.Attention(cfg, device)
-        self.ffn = MLP(cfg, device)
+        self.mixer = attn_lib.Attention(cfg, device) if spec.kind == "attn" else mamba_lib.Mamba(cfg, device)
+        self.ffn = MoE(cfg, device) if spec.moe else MLP(cfg, device)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -94,7 +91,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         kw = dict(dtype=cfg.dtype("param"), device=device)
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw))
@@ -132,8 +128,8 @@ def compute_copy(params: Transformer, cfg: ModelConfig | None = None) -> Transfo
     its use anyway (``layers.linear``, the embedding lookup, the logits); the
     norm gains and other vectors stay in the parameter dtype, as the
     reference reads them.  The rule: a matrix that the reference reads in
-    float32 (a module's ``READ_IN_FP32``, such as RWKV's ``decay_w2``) is
-    never narrowed.
+    float32 (a module's ``READ_IN_FP32``: RWKV's ``decay_w2``, the MoE
+    ``router``, Mamba's ``A_log``) is never narrowed.
 
     Only a matrix that changes dtype gets new storage: every other parameter
     object is shared with ``params`` (neither side writes its parameters when
@@ -164,9 +160,9 @@ def init_cache(
     "pos": (batch, S_cache)}, with S_cache the window for local layers of a
     ``windowed_cache`` config.  ``paged``: each attention layer holds shared
     page pools instead, and the cache gains the page table ``pages`` (batch,
-    pages_per_slot) int32 shared by every layer (-1 = unallocated).  An RWKV
-    layer holds its per-slot {"tm_last", "cm_last", "state"} either way."""
-    _check_supported(cfg)
+    pages_per_slot) int32 shared by every layer (-1 = unallocated).  A
+    recurrent layer holds its per-slot state either way: RWKV6 {"tm_last",
+    "cm_last", "state"}, Mamba {"conv", "ssm"}."""
     cache: dict = {"index": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if paged is not None:
         cache["pages"] = torch.full((batch, paged.pages_per_slot), -1, dtype=torch.int32, device=device)
@@ -174,6 +170,8 @@ def init_cache(
     for spec in cfg.layer_specs():
         if spec.kind == "rwkv":
             layers.append(rwkv_lib.init_rwkv_cache(cfg, batch, device=device))
+        elif spec.kind == "mamba":
+            layers.append(mamba_lib.init_mamba_cache(cfg, batch, device=device))
         elif paged is not None:
             layers.append(attn_lib.init_paged_kv_cache(cfg, paged, device=device))
         else:
@@ -186,13 +184,19 @@ def init_cache(
 
 
 # ---------------------------------------------------------------------------
-# serving steps
+# shared pieces
 # ---------------------------------------------------------------------------
 
 
-def _embed_in(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _embed_in(params: Transformer, inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token ids (B, S) looked up in ``embed``, or, with ``cfg.embeds_input``,
+    float embeddings (B, S, d) taken as they are; cast to the compute dtype,
+    then scaled by sqrt(d) under ``scale_embeddings``."""
     cdt = cfg.dtype("compute")
-    h = embed(params.embed, tokens, cdt)
+    if cfg.embeds_input and inputs.is_floating_point() and inputs.ndim == 3:
+        h = inputs.to(cdt)
+    else:
+        h = embed(params.embed, inputs, cdt)
     if cfg.scale_embeddings:
         h = h * torch.tensor(cfg.d_model**0.5, dtype=cdt, device=h.device)
     return h
@@ -210,14 +214,31 @@ def _norm(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     return norm_apply(x, p, cfg.norm, cfg.norm_eps)
 
 
-def _ffn_half(layer: Block, h: torch.Tensor, mix: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn_half(
+    layer: Block, h: torch.Tensor, mix: torch.Tensor, cfg: ModelConfig, moe_group: int = 2048, moe_metrics=None,
+    moe_routes=None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The mixer's residual, then the ffn sub-block with its own.  Returns
+    (h, the MoE layer's weighted auxiliary loss or None).  ``moe_group``: the
+    MoE layer's token group; ``moe_metrics``, a list, receives its metrics;
+    ``moe_routes``, an iterator, gives its expert choice (``moe_apply``'s ``top_idx``)."""
     if cfg.post_block_norm:
         mix = _norm(mix, layer.norm1_post, cfg)
     h = h + mix
-    ffn = mlp_apply(layer.ffn, _norm(h, layer.norm2, cfg), cfg)
+    hi = _norm(h, layer.norm2, cfg)
+    aux = None
+    if layer.spec.moe:
+        route = next(moe_routes) if moe_routes is not None else None
+        ffn, metrics = moe_apply(layer.ffn, hi, cfg, group_size=moe_group, top_idx=route)
+        mo = cfg.moe
+        aux = mo.router_aux_weight * metrics["aux_loss"] + mo.router_z_weight * metrics["z_loss"]
+        if moe_metrics is not None:
+            moe_metrics.append(metrics)
+    else:
+        ffn = mlp_apply(layer.ffn, hi, cfg)
     if cfg.post_block_norm:
         ffn = _norm(ffn, layer.norm2_post, cfg)
-    return h + ffn
+    return h + ffn, aux
 
 
 # ---------------------------------------------------------------------------
@@ -225,17 +246,25 @@ def _ffn_half(layer: Block, h: torch.Tensor, mix: torch.Tensor, cfg: ModelConfig
 # ---------------------------------------------------------------------------
 
 
-def _train_layer(layer: Block, h: torch.Tensor, cfg: ModelConfig, attn_impl: str) -> torch.Tensor:
+def _train_layer(layer: Block, h: torch.Tensor, cfg: ModelConfig, attn_impl: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer; returns (h, its MoE auxiliary loss, 0 for a dense ffn)."""
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if layer.spec.kind == "rwkv":
-        return rwkv_lib.rwkv_train(layer.rwkv, h, cfg)  # the block adds its own residuals
-    mix = attn_lib.attention_train(layer.mixer, _norm(h, layer.norm1, cfg), cfg, layer.spec.attn_type, impl=attn_impl)
-    return _ffn_half(layer, h, mix, cfg)
+        return rwkv_lib.rwkv_train(layer.rwkv, h, cfg), zero  # the block adds its own residuals
+    hi = _norm(h, layer.norm1, cfg)
+    if layer.spec.kind == "attn":
+        mix = attn_lib.attention_train(layer.mixer, hi, cfg, layer.spec.attn_type, impl=attn_impl)
+    else:
+        mix = mamba_lib.mamba_train(layer.mixer, hi, cfg)
+    h, aux = _ffn_half(layer, h, mix, cfg)
+    return h, zero if aux is None else aux
 
 
 def forward(
     params: Transformer, inputs: torch.Tensor, cfg: ModelConfig, attn_impl: str = "blocked"
 ) -> tuple[torch.Tensor, dict]:
-    """Training forward: tokens (B, S) -> (logits (B, S, V), {"moe_aux": 0}).
+    """Training forward: tokens (B, S), or (B, S, d) float embeddings with
+    ``cfg.embeds_input`` -> (logits (B, S, V), {"moe_aux"}).
 
     Computes in ``cfg.compute_dtype`` with every cast inside the graph
     (``linear`` casts each weight at its use, the embedding lookup and the
@@ -245,16 +274,19 @@ def forward(
     activations at a time.  ``remat_policy="minimal"`` (the reference saves
     the matmul outputs) recomputes everything too: the values are the same.
     RWKV layers run ``rwkv.rwkv_train`` with the ``chunked`` WKV, as the
-    reference trains them."""
+    reference trains them.  ``moe_aux`` sums ``router_aux_weight·aux_loss +
+    router_z_weight·z_loss`` over the MoE layers (0 without them)."""
     h = _embed_in(params, inputs, cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     remat = cfg.remat and cfg.remat_policy != "none"
     for layer in params.layers:
         if remat:
-            h = checkpoint(_train_layer, layer, h, cfg, attn_impl, use_reentrant=False)
+            h, aux = checkpoint(_train_layer, layer, h, cfg, attn_impl, use_reentrant=False)
         else:
-            h = _train_layer(layer, h, cfg, attn_impl)
+            h, aux = _train_layer(layer, h, cfg, attn_impl)
+        aux_total = aux_total + aux
     h = _norm(h, params.final_norm, cfg)
-    return _logits(params, h, cfg), {"moe_aux": torch.zeros((), dtype=torch.float32, device=h.device)}
+    return _logits(params, h, cfg), {"moe_aux": aux_total}
 
 
 def loss_fn(
@@ -278,12 +310,18 @@ def loss_fn(
     return loss, {"xent": xent, "moe_aux": metrics["moe_aux"], "tokens": token_count}
 
 
+# ---------------------------------------------------------------------------
+# serving steps
+# ---------------------------------------------------------------------------
+
+
 @torch.no_grad()
 def decode_step(params: Transformer, cache: dict, tokens: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One serving step: tokens (B,) -> (logits (B, V), cache).  The cache is
-    updated in place (attention layers write their tensors, RWKV layers get
-    new ones in their dicts) and returned with ``index + 1``; ``pages`` is
-    read-only here (the engine owns it)."""
+    updated in place (attention layers write their tensors, recurrent layers
+    get new ones in their dicts) and returned with ``index + 1``; ``pages`` is
+    read-only here (the engine owns it).  An MoE layer routes the B tokens as
+    one group, every slot's row included, as the reference's decode does."""
     h = _embed_in(params, tokens[:, None], cfg)
     index = cache["index"]
     pages = cache.get("pages")
@@ -292,11 +330,16 @@ def decode_step(params: Transformer, cache: dict, tokens: torch.Tensor, cfg: Mod
             h, new = rwkv_lib.rwkv_decode(layer.rwkv, h, layer_cache, cfg)
             layer_cache.update(new)
             continue
-        c = dict(layer_cache, index=index)
-        if pages is not None:
-            c["pages"] = pages
-        mix, _ = attn_lib.attention_decode(layer.mixer, _norm(h, layer.norm1, cfg), c, cfg, layer.spec.attn_type)
-        h = _ffn_half(layer, h, mix, cfg)
+        hi = _norm(h, layer.norm1, cfg)
+        if layer.spec.kind == "mamba":
+            mix, new = mamba_lib.mamba_decode(layer.mixer, hi, layer_cache, cfg)
+            layer_cache.update(new)
+        else:
+            c = dict(layer_cache, index=index)
+            if pages is not None:
+                c["pages"] = pages
+            mix, _ = attn_lib.attention_decode(layer.mixer, hi, c, cfg, layer.spec.attn_type)
+        h, _ = _ffn_half(layer, h, mix, cfg, moe_group=h.shape[0] * h.shape[1])
     h = _norm(h, params.final_norm, cfg)
     cache["index"] = index + 1
     return _logits(params, h, cfg)[:, 0], cache
@@ -311,32 +354,47 @@ def prefill(
     cfg: ModelConfig,
     attn_impl: str = "naive",
     wkv_impl: str = "kernel",
+    moe_metrics: list | None = None,
+    moe_routes: list | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Batched prompt-parallel prefill: one forward over the whole padded prompt
     writes every layer's cache.
 
-    tokens: (B, S_p) right-padded prompts; lengths: (B,) valid counts (1..S_p);
+    tokens: (B, S_p) right-padded prompts, or (B, S_p, d) float embeddings
+    with ``cfg.embeds_input``; lengths: (B,) valid counts (1..S_p);
     cache: a dense per-slot cache from ``init_cache`` (read for its shapes
     and dtypes, not modified).  ``attn_impl`` picks the attention layers'
     route, ``wkv_impl`` ("scan", "chunked" or "kernel") the RWKV layers'.
     The default "kernel" (``kernels.ops.rwkv6_scan``: the CUDA kernel on the
     card, the plain sequential scan on the CPU) departs from the reference's
-    "chunked" so that serving on the card runs the kernel.
+    "chunked" so that serving on the card runs the kernel.  Recurrent layers
+    (Mamba, RWKV6) freeze their state at each row's last real token; an MoE
+    layer routes in groups of 2048 tokens, as the reference's prefill does.
+    ``moe_metrics``, a list, receives each MoE layer's metrics dict;
+    ``moe_routes``, a list of each MoE layer's expert choice in layer order
+    (the metrics' ``top_idx`` of another run), routes by it in place of the
+    router's top-k, which holds the routing fixed between two attention routes.
     Returns (logits at each row's last real token (B, V), a new cache with
     ``index == lengths``)."""
     h = _embed_in(params, tokens, cfg)
     lengths = lengths.to(torch.int32)
+    routes = iter(moe_routes) if moe_routes is not None else None
     layers = []
     for layer, layer_cache in zip(params.layers, cache["layers"]):
         if layer.spec.kind == "rwkv":
             h, new = rwkv_lib.rwkv_prefill(layer.rwkv, h, cfg, lengths, wkv_impl)
             layers.append({key: val.to(layer_cache[key].dtype) for key, val in new.items()})
             continue
-        mix, new_layer_cache = attn_lib.attention_prefill(
-            layer.mixer, _norm(h, layer.norm1, cfg), layer_cache, cfg, layer.spec.attn_type, lengths, impl=attn_impl
-        )
-        h = _ffn_half(layer, h, mix, cfg)
-        layers.append(new_layer_cache)
+        hi = _norm(h, layer.norm1, cfg)
+        if layer.spec.kind == "mamba":
+            mix, new = mamba_lib.mamba_prefill(layer.mixer, hi, cfg, lengths)
+            new = {key: val.to(layer_cache[key].dtype) for key, val in new.items()}
+        else:
+            mix, new = attn_lib.attention_prefill(
+                layer.mixer, hi, layer_cache, cfg, layer.spec.attn_type, lengths, impl=attn_impl
+            )
+        h, _ = _ffn_half(layer, h, mix, cfg, moe_metrics=moe_metrics, moe_routes=routes)
+        layers.append(new)
     h = _norm(h, params.final_norm, cfg)
     last = h[torch.arange(h.shape[0], device=h.device), lengths.long() - 1]
     return _logits(params, last, cfg), {"index": lengths, "layers": layers}

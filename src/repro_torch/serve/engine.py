@@ -12,16 +12,22 @@ PyTorch runs eagerly where the reference jit-compiles each of these steps.
 page reservations, and per-tick decode reads each slot's live pages only.
 A paged engine always prefills with naive attention into a non-windowed
 template, then splices the template's positions into the slot's pages.
-Recurrent (RWKV) layers keep a per-slot state in either layout, and the
-splice overwrites the slot's row of it whole.
+Recurrent (RWKV6, Mamba) layers keep a per-slot state in either layout,
+and the splice overwrites the slot's row of it whole.  An embeds-input
+model (llava) takes (L, d) float32 prompts, padded in a float32 bucket;
+its decode feeds the sampled token's id, whose embedding row is what the
+reference's engine feeds (``repro/serve/engine.py:147``).
 
 Preemption (paged) keeps the evicted slot's cache: ``preempt`` copies its
-live K/V rows (with an int8 cache's scale rows, and any recurrent row) to
-host memory in the resume token and releases its pages; ``restore`` copies
-them into freshly allocated pages.  The reference re-prefills prompt + generated tokens instead
-(``repro/serve/engine.py:640-699``), which gives the generated positions
-prefill arithmetic in place of decode arithmetic; in bfloat16 the two round
-apart, so only kept rows continue token-identically.  A restore is
+live K/V rows (with an int8 cache's scale rows, and any recurrent row:
+RWKV6's, Mamba's conv and SSM state) to host memory in the resume token,
+with the prompt (token ids or embeddings), and releases its pages;
+``restore`` copies them into freshly allocated pages.  The reference
+re-prefills prompt + generated tokens instead (``repro/serve/engine.py:390``;
+for an embeddings prompt, the prompt and the generated tokens' embedding
+rows, ``:402``), which gives the generated positions prefill arithmetic in
+place of decode arithmetic; in bfloat16 the two round apart, so only kept
+rows continue token-identically.  A restore is
 therefore no prefill here: ``prefills``/``prefill_tokens`` count admissions
 only, where the reference's count restores too.
 
@@ -211,7 +217,8 @@ class ServeEngine:
         return True
 
     def admit(self, rid: int, prompt: np.ndarray, max_gen: int) -> tuple[int, tuple | None]:
-        """Prefill ``prompt`` ((L,) int32 token ids) into a free slot.  Returns
+        """Prefill ``prompt`` ((L,) int32 token ids, or (L, d) float embeddings
+        for ``cfg.embeds_input`` archs) into a free slot.  Returns
         (slot, finished) where ``finished`` is ``(rid, tokens)`` if the request
         already retired at admission (max_gen == 1 or instant EOS), else None."""
         free = self.free_slots
@@ -242,12 +249,16 @@ class ServeEngine:
         return b, None
 
     def _prefill_into_slot(self, b: int, tokens: np.ndarray) -> int:
-        """Run the bucketed batch-1 prefill of ``tokens`` and splice its cache
-        into slot ``b`` (a paged slot's pages must already be reserved and
+        """Run the bucketed batch-1 prefill of ``tokens`` (ids, or (L, d)
+        embeddings padded in a float32 bucket) and splice its cache into slot
+        ``b`` (a paged slot's pages must already be reserved and
         prefix-allocated).  Returns the sampled token."""
         L = int(tokens.shape[0])
         bucket = bucket_len(L)
-        padded = np.zeros((1, bucket), np.int64)
+        if self.cfg.embeds_input:
+            padded = np.zeros((1, bucket, tokens.shape[1]), np.float32)
+        else:
+            padded = np.zeros((1, bucket), np.int64)
         padded[0, :L] = tokens
         toks = torch.from_numpy(padded).to(self.device)
         lengths = torch.tensor([L], dtype=torch.int32, device=self.device)

@@ -22,7 +22,8 @@ __all__ = ["Request", "SchedulerConfig", "Scheduler", "serve_loop", "summarize"]
 
 @dataclasses.dataclass
 class Request:
-    """One generation request.  ``prompt``: (L,) int32 token ids."""
+    """One generation request.  ``prompt``: (L,) int32 token ids (or (L, d)
+    float32 embeddings for embeds-input archs)."""
 
     rid: int
     prompt: np.ndarray

@@ -1,9 +1,8 @@
-"""Request-traffic synthesis: Poisson arrivals, mixed lengths, traces (a copy
-of ``repro.serve.workload`` for token-id prompts, the only prompts the
-port's architectures take).
+"""Request-traffic synthesis: Poisson arrivals, mixed lengths, traces.
 
-All randomness is seeded from numpy, in the reference's order, so a seed
-gives the JAX side's exact requests.
+All randomness is seeded; the same config always yields the same workload,
+so engine/router comparisons (continuous vs static, adaptive vs equal) run
+on identical traffic.
 """
 
 from __future__ import annotations
@@ -37,9 +36,11 @@ class WorkloadConfig:
             raise ValueError("rate must be >= 0")
 
 
-def synthesize(cfg: WorkloadConfig) -> list[Request]:
+def synthesize(cfg: WorkloadConfig, embed_dim: int | None = None) -> list[Request]:
     """Generate ``n_requests`` with Poisson inter-arrival times (exponential
-    gaps at ``rate`` per tick) and uniform mixed prompt/generation lengths."""
+    gaps at ``rate`` per tick) and uniform mixed prompt/generation lengths.
+    ``embed_dim``: produce (L, d) float32 embedding prompts instead of token
+    ids (embeds-input archs)."""
     rng = np.random.default_rng(cfg.seed)
     if cfg.rate > 0:
         arrivals = np.cumsum(rng.exponential(1.0 / cfg.rate, cfg.n_requests))
@@ -49,7 +50,10 @@ def synthesize(cfg: WorkloadConfig) -> list[Request]:
     for i in range(cfg.n_requests):
         L = int(rng.integers(cfg.prompt_len[0], cfg.prompt_len[1] + 1))
         G = int(rng.integers(cfg.gen_len[0], cfg.gen_len[1] + 1))
-        prompt = rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+        if embed_dim is not None:
+            prompt = rng.standard_normal((L, embed_dim)).astype(np.float32)
+        else:
+            prompt = rng.integers(0, cfg.vocab_size, L).astype(np.int32)
         reqs.append(Request(rid=i, prompt=prompt, max_gen=G, arrival=float(arrivals[i])))
     return reqs
 
@@ -58,11 +62,13 @@ def from_trace(
     records: list[dict],
     vocab_size: int = 256,
     seed: int = 0,
+    embed_dim: int | None = None,
     time_scale: float = 1.0,
 ) -> list[Request]:
     """Build requests from a trace: [{"arrival": t, "prompt_len": L,
-    "gen_len": G}, ...].  Token contents are synthesized deterministically;
-    ``time_scale`` maps trace time onto engine ticks.
+    "gen_len": G}, ...].  Token contents are synthesized deterministically
+    (``embed_dim`` switches to (L, d) float32 embedding prompts, mirroring
+    :func:`synthesize`); ``time_scale`` maps trace time onto engine ticks.
     Arrivals must be non-decreasing — the scheduler admits in arrival order,
     so a shuffled trace would silently serve a different workload."""
     if time_scale <= 0:
@@ -78,6 +84,9 @@ def from_trace(
         if arrival < prev:
             raise ValueError(f"trace record {i}: arrivals must be non-decreasing")
         prev = arrival
-        prompt = rng.integers(0, vocab_size, L).astype(np.int32)
+        if embed_dim is not None:
+            prompt = rng.standard_normal((L, embed_dim)).astype(np.float32)
+        else:
+            prompt = rng.integers(0, vocab_size, L).astype(np.int32)
         reqs.append(Request(rid=i, prompt=prompt, max_gen=G, arrival=arrival))
     return reqs

@@ -174,6 +174,7 @@ def to_requests(
     seed: int = 0,
     time_scale: float = 1.0,
     limit: int | None = None,
+    embed_dim: int | None = None,
 ) -> list:
     """Tasks -> ``serve.Request`` list via ``workload.from_trace``.
 
@@ -186,7 +187,7 @@ def to_requests(
 
     tasks = trace.tasks[:limit] if limit is not None else trace.tasks
     records = [{"arrival": t.arrival * time_scale, "prompt_len": t.prompt_len, "gen_len": t.gen_len} for t in tasks]
-    return from_trace(records, vocab_size=vocab_size, seed=seed)
+    return from_trace(records, vocab_size=vocab_size, seed=seed, embed_dim=embed_dim)
 
 
 # ---------------------------------------------------------------------------

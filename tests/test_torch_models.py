@@ -17,13 +17,14 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
 from repro.configs import smoke_config as jax_smoke_config
 from repro.models import attention as jattn
 from repro.models import transformer as jtf
 from repro.models.layers import rmsnorm as jax_rmsnorm
 from repro.models.mlp import mlp_apply as jax_mlp_apply
 from repro.models.rope import apply_rope as jax_apply_rope
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as ttf
 from repro_torch.models.convert import params_from_jax, params_to_jax
@@ -307,15 +308,23 @@ def test_port_init_params_shapes_match_jax():
 
 
 def test_unported_archs_and_layers_raise():
+    """Every architecture of the reference is registered, so only an unknown
+    one raises; MoE and Mamba layers, which raised until their slice, build
+    and run on the smollm geometry."""
+    assert list_archs() == jax_list_archs()
     with pytest.raises(KeyError, match="smollm-360m"):
-        get_config("jamba-1.5-large-398b")
-    from repro_torch.models.config import LayerSpec, MoEConfig
+        get_config("jamba-2-mini")
+    from repro_torch.models.config import LayerSpec, MambaConfig, MoEConfig
 
-    moe = dataclasses.replace(
-        smoke_config("smollm-360m"), block_pattern=(LayerSpec(moe=True),), moe=MoEConfig(4, 2, 32)
+    hybrid = dataclasses.replace(
+        smoke_config("smollm-360m"), n_layers=4, block_pattern=(LayerSpec(moe=True), LayerSpec(kind="mamba")),
+        moe=MoEConfig(4, 2, 32), mamba=MambaConfig(d_inner=128, d_state=8, chunk=8),
     )
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttf.init_params(moe, device="cpu")
+    tp = ttf.init_params(hybrid, device="cpu")
+    assert [type(layer.mixer).__name__ + "/" + type(layer.ffn).__name__ for layer in tp.layers] == \
+        ["Attention/MoE", "Mamba/MLP", "Attention/MoE", "Mamba/MLP"]
+    logits, metrics = ttf.forward(tp, torch.zeros((1, 16), dtype=torch.long), hybrid)
+    assert logits.shape == (1, 16, hybrid.vocab_size) and float(metrics["moe_aux"]) > 0
 
 
 def _rel(a, b, scale):

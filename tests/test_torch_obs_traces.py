@@ -51,14 +51,13 @@ from repro_torch.traces.synth import TraceSynthConfig, synthesize_trace
 ROOT = Path(__file__).resolve().parents[1]
 
 # (reference module, port module, [(the reference's text, the port's), ...]): each
-# departure names a hunk the port drops; the port's prompts are token ids only
+# departure names a hunk the port drops; since the port takes embedding prompts (llava),
+# the copies have none
 COPIES = [
     (repro.obs.metrics, repro_torch.obs.metrics, []),
     (repro.obs.tracer, repro_torch.obs.tracer, []),
-    (repro.traces.schema, repro_torch.traces.schema, [
-        ("    limit: int | None = None,\n    embed_dim: int | None = None,\n", "    limit: int | None = None,\n"),
-        ("seed=seed, embed_dim=embed_dim)", "seed=seed)"),
-    ]),
+    (repro.traces.schema, repro_torch.traces.schema, []),
+    (repro.serve.workload, repro_torch.serve.workload, []),
     (repro.traces.faults, repro_torch.traces.faults, []),
     (repro.checkpoint.manager, repro_torch.checkpoint.manager, []),
 ]
