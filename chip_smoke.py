@@ -18,7 +18,9 @@ nonzero exit and no result line, if anything is wrong:
    at the dense family's shapes (``DENSE_FLASH_CASES``,
    ``DENSE_PAGED_CASES``: gemma-7b's int8 pools at head_dim 256, yi-34b's
    group of 7, gemma3-27b's 1024-token window, musicgen-large's MHA,
-   jamba-1.5's group of 8 and olmoe-1b-7b's MHA at head_dim 128).  The paged
+   jamba-1.5's group of 8 and olmoe-1b-7b's MHA at head_dim 128); paged at
+   pages of 2 tokens (``PAGED_PAGE2_CASES``: protocol_engine's pool of 4
+   pages, and the serving lengths).  The paged
    kernel gives the same bits on repeated calls at the serving shape and at
    paged_scaling's (below), called at the two shapes in turn.
 3. Flash serve: ``ServeEngine(smollm-360m, attn_impl="flash")`` at full width
@@ -208,7 +210,37 @@ nonzero exit and no result line, if anything is wrong:
     bytes floor of a decode tick (every weight, every expert: the einsum
     dispatch runs them all) is its own line.
 
-The flash and paged rows of the kernels line count their launches on every
+21. Protocol (``protocol``): ``python -m repro_torch.analysis --target
+    protocol`` in process: exit 0, no finding, every model exhausted with the
+    CPU's state, transition and depth counts (``PROTOCOL_EXPECTED``) and the
+    three selftest counterexamples, each replayed.
+22. The twin against the engine (``protocol_engine``): smollm-360m at full
+    width and depth (bf16, seed-0 weights) on paged engines at page 2 with the
+    serve models' pools (``ServeModel``: 4 pages, 2 slots, max_seq 8;
+    ``ServeFaultModel``: 2 pages, 1 slot, max_seq 4, one engine a replica).
+    A seeded sample of the models' leaf scripts (32 of ``ServeModel``'s, 12
+    of ``ServeFaultModel``'s with a preempt and a restore; ``eos:`` left out)
+    replays on the twin and on the engines, and after every action the pools'
+    fingerprints, the active slots' (rid, pos, generated, max_gen) and the
+    resume tokens are equal; n_layers paged launches a tick; every delivered
+    request of a fault script (restored ones among them) gives the tokens of
+    the same request run alone.
+23. The paper's models (``convnet``): ConvNet (width 16, 28x28x1), VGG-s
+    11/16/19 and ResNet-s 18/50 (width 16, 32x32x3), batch 128, the same
+    seeded weights on the card and on the CPU: in float64 the logits and
+    every gradient equal the CPU's within ``CONVNET_F64_RTOL``; in float32
+    with TF32 off the logits within ``CONVNET_RTOL`` of the CPU's float32 and
+    the gradients within ``CONVNET_F32_GRAD_RTOL`` of the CPU's float64; the
+    gaps with TF32 on are logged; images/s of forward + backward with TF32
+    off and on.  Then ConvNet (width 8) trains 30 SGD steps as
+    ``benchmarks/paper_figs.py`` trains it (synthetic MNIST of 512, global
+    batch 100, lr 0.01, momentum 0.9, weight decay 1e-4) on the card and on
+    the CPU: every step's loss and the final loss within 1e-3.  TF32 is
+    restored afterwards.
+
+The three phases above run after every serving and training path and
+before the timing phase, so that protocol_engine's launches are on the
+kernels line.  The flash and paged rows of the kernels line count their launches on every
 serving path (``launches_by_path``); the weighted_accum row counts those of
 every training path (8, 13, 14 summed over the ranks, 15), the ring's reduce
 steps among them.  A ``phase_seconds`` line follows each phase.
@@ -219,6 +251,7 @@ The last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "coun
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -303,6 +336,11 @@ DENSE_PAGED_CASES = {
     "jamba-1.5 G=8": ([300, 17, 160, 64], 64, 8, 128, None, False),
     "olmoe-1b-7b MHA 16/16 Dh 128": ([300, 17, 160, 64], 16, 16, 128, None, False),
 }
+PAGED_PAGE2_CASES = (  # label, lengths, pool pages (None: just enough), table width (None: enough + 2)
+    ("protocol_engine's pool", [5, 2], 4, 4),
+    ("protocol_engine's pool, one slot empty", [6, 0], 4, 4),
+    ("smollm's serving lengths", [300, 17, 160, 64], None, None),
+)
 PAGED_CASES = [  # tests/test_kernels.py PAGED_CASES: lengths, H, Hkv, window, softcap
     ([10, 3, 0], 4, 2, None, 0.0),
     ([8, 8], 4, 1, None, 0.0),
@@ -455,12 +493,17 @@ def quant_int8(x):
 # ---------------------------------------------------------------------------
 
 
+SMI = ""  # the card's name and power limit as nvidia-smi prints them, set by phase_device
+
+
 def phase_device():
+    global SMI
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    SMI = smi
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -521,6 +564,13 @@ def phase_kernels(workload_lengths):
             compare("paged_attention", got, paged_attention_ref(*args, **kw), dtype, f"test_kernels {case}")
             empty = args[4] == 0
             check(bool((got[empty] == 0).all()), "an empty slot must give 0")
+        # page size 2 (protocol_engine's pool: 4 pages of 2 tokens, 2 slots), and at the serving lengths
+        for label, lengths, n_pages, p_max in PAGED_PAGE2_CASES:
+            n_pages = n_pages or sum(-(-n // 2) for n in lengths)
+            p_max = p_max or max(-(-n // 2) for n in lengths) + 2
+            args = paged_inputs(lengths, 15, 5, 64, 2, n_pages, p_max, dtype, seed=4)
+            compare("paged_attention", ops.paged_attention(*args), paged_attention_ref(*args), dtype,
+                    f"{label}: lengths={lengths} page=2 pool={n_pages}")
         # int8 pools with bf16 scales, dequantised in the kernel
         q, kp, vp, table, lens = paged_inputs(workload_lengths, 15, 5, 64, 16, 160, 20, dtype, seed=3)
         k_i, k_s = quant_int8(kp)
@@ -2438,6 +2488,227 @@ def phase_timing(main_err, launches, paged_lengths):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the protocol model checker, the twin against the real engine, the paper's convnets
+# ---------------------------------------------------------------------------
+
+# the report of ``python -m repro_torch.analysis --target protocol`` on the CPU (tests/test_torch_protocol.py):
+# (states, transitions, depth reached) of each model, every one exhausted, and the selftests' scripts
+PROTOCOL_EXPECTED = {"elastic": (11144, 44305, 7), "serve": (518, 1421, 11), "serve-faults": (3810, 9588, 12)}
+PROTOCOL_SELFTEST = {
+    "elastic-remap-identity": "hb@0:1,outage@1:0+2,tick@2,hb@3:1,tick@4",
+    "serve-drop-release": "submit@0:5x1,admit@1",
+    "serve-faults-double-deliver": "submit@0:2x1,retry@1:0,hedge@2:1,admit@3:0,admit@4:1",
+}
+# protocol_engine: seeded samples of the models' leaf scripts replayed on full-width smollm-360m engines
+PROTOCOL_ENGINE = dict(serve_scripts=32, fault_scripts=12, seed=0)
+# convnet: the paper's models at the reference's widths, float32, batch 128
+CONVNET = dict(batch=128, width=16, seed=0, iters=10)
+# max |card - CPU| / max |CPU|: float64 on both sides, the logits and every gradient (the same function:
+# each convolution's float32 rounding is 1e-7 to 1e-5 of its output on either device, so float64 shows
+# any other difference); float32 with TF32 off, the logits against the CPU's float32; float32 gradients
+# against the CPU's float64: a whole network's float32 gradient parts from its float64 one by up to 5e-3
+# of the tensor's largest element on the CPU itself (ResNet-50 at seed 0), by up to 2.5e-3 on the card
+CONVNET_F64_RTOL = 1e-9
+CONVNET_RTOL = 1e-3
+CONVNET_F32_GRAD_RTOL = 1e-2
+# the reference's only caller of ConvNet (benchmarks/paper_figs.py:44-72): 30 SGD steps at width 8
+CONVNET_TRAIN = dict(width=8, steps=30, n_samples=512, global_batch=100, lr=0.01, momentum=0.9, weight_decay=1e-4)
+CONVNET_TRAIN_ATOL = 1e-3
+
+
+def phase_protocol():
+    """The protocol model checker's CLI on the card machine: exit 0, the CPU's report."""
+    from repro_torch.analysis import cli
+
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "protocol.json")
+        t0 = time.perf_counter()
+        rc = cli.main(["--target", "protocol", "--json-out", out, "--cex-out", os.path.join(d, "cex")])
+        seconds = time.perf_counter() - t0
+        with open(out) as fh:
+            report = json.load(fh)
+        cex = sorted(os.listdir(os.path.join(d, "cex")))
+    got = {name: (m["n_states"], m["n_transitions"], m["max_depth_reached"])
+           for name, m in report["targets"]["protocol"].items()}
+    selftest = {name: m["counterexample"] for name, m in report["targets"]["selftest_protocol"].items()}
+    log(phase="protocol", rc=rc, seconds=seconds, models=got, selftest=selftest, cex_files=cex,
+        summary={k: report["summary"][k] for k in ("n_error", "n_warning", "n_note")},
+        note="host-side model checking; no kernel runs", nvidia_smi=SMI)
+    check(rc == 0 and report["summary"]["n_error"] == 0, "protocol: the model checker reports an error")
+    check(all(m["exhausted"] and not m["n_violations"] for m in report["targets"]["protocol"].values()),
+          "protocol: every model exhausted with no violation")
+    check(got == PROTOCOL_EXPECTED, f"protocol: {got} != the CPU's {PROTOCOL_EXPECTED}")
+    check(selftest == PROTOCOL_SELFTEST, f"protocol selftest scripts {selftest}")
+    check(all(m["replayed"] for m in report["targets"]["selftest_protocol"].values()), "protocol selftests replay")
+
+
+def phase_protocol_engine(cfg, params):
+    """The twin of the serve models against real paged engines of full-width smollm-360m: pools, slots and
+    resume tokens after every action of sampled leaf scripts; a replayed request's tokens equal its
+    uninterrupted run's."""
+    from repro_torch.analysis.protocol import (
+        ServeFaultModel, ServeModel, engine_kwargs, leaf_scripts, replay_on_engines, solo_tokens,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
+
+    c = PROTOCOL_ENGINE
+    rng = np.random.default_rng(c["seed"])
+    serve_m, fault_m = ServeModel(), ServeFaultModel()
+    serve_leaves = leaf_scripts(serve_m, 12)
+    fault_leaves = [sc for sc in leaf_scripts(fault_m, 12)
+                    if any(a.startswith("preempt") for a in sc) and any(a.startswith("restore") for a in sc)]
+    serve_pick = [serve_leaves[i] for i in sorted(rng.choice(len(serve_leaves), c["serve_scripts"], replace=False))]
+    fault_pick = [fault_leaves[i] for i in sorted(rng.choice(len(fault_leaves), c["fault_scripts"], replace=False))]
+
+    def pool_of(model, n):
+        engines = [ServeEngine(cfg, params, seed=0, **engine_kwargs(model)) for _ in range(n)]
+        turn = itertools.cycle(engines)
+
+        def make():
+            eng = next(turn)
+            eng.reset()
+            return eng
+        return engines, make
+
+    serve_engines, make_serve = pool_of(serve_m, 1)
+    fault_engines, make_fault = pool_of(fault_m, fault_m.n_replicas)
+    replay_on_engines(serve_m, serve_pick[0], make_serve)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    serve_runs = [replay_on_engines(serve_m, sc, make_serve) for sc in serve_pick]
+    fault_runs = [replay_on_engines(fault_m, sc, make_fault) for sc in fault_pick]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    ticks = sum(a.partition(":")[0] == "tick" for sc in serve_pick + fault_pick for a in sc)
+    check(launches["paged_attention"] == cfg.n_layers * ticks > 0,
+          f"protocol_engine: {launches['paged_attention']} paged launches for {ticks} ticks")
+
+    # every delivery of a fault script (restored ones among them) against the same request run alone
+    solo = fault_engines[0]
+    checked = restored = 0
+    for sc, run in zip(fault_pick, fault_runs):
+        for _, _, rid, toks in run["finished"]:
+            prompt = run["prompts"][rid]
+            want = solo_tokens(solo, prompt, len(toks))
+            check(toks == want, f"protocol_engine: {sc} request {rid} gave {toks}, uninterrupted {want}")
+            checked += 1
+            restored += rid in run["restored"]
+    check(restored > 0, "protocol_engine: no restored request was delivered")
+    log(phase="protocol_engine", serve_scripts=len(serve_pick), of_serve_leaves=len(serve_leaves),
+        fault_scripts=len(fault_pick), of_fault_leaves=len(fault_leaves),
+        actions=sum(r["actions"] for r in serve_runs + fault_runs), ticks=ticks,
+        deliveries_checked=checked, restored_deliveries=restored, launches=launches, wall_s=wall,
+        engine=engine_kwargs(serve_m), fault_engine=engine_kwargs(fault_m), nvidia_smi=SMI)
+    del serve_engines, fault_engines, solo
+    return launches["paged_attention"]
+
+
+def _convnet_input(arch, batch, seed):
+    rng = np.random.default_rng(seed)
+    shape = (batch, 28, 28, 1) if arch == "convnet" else (batch, 32, 32, 3)
+    return rng.normal(size=shape).astype(np.float32), rng.integers(0, 10, batch)
+
+
+def _convnet_grads(model, x, y):
+    from repro_torch.models.convnet import xent_loss
+
+    model.zero_grad(set_to_none=True)
+    logits = model(x)
+    xent_loss(logits, y).backward()
+    return logits.detach(), {k: p.grad.detach() for k, p in model.named_parameters()}
+
+
+def _rel_gap(got, want):
+    """max |got - want| / max |want| per tensor, in float64 on the host."""
+    return {k: (got[k].double().cpu() - want[k].double().cpu()).abs().max().item()
+            / max(want[k].double().abs().max().item(), 1e-30) for k in want}
+
+
+def _convnet_train(device):
+    """benchmarks/paper_figs.py's ConvNet loop (one allocation; the update is allocation-invariant): each
+    step's loss before its update, and the loss after the last update on the last batch."""
+    from repro_torch.data import SyntheticImages
+    from repro_torch.models.convnet import ConvNet, xent_loss
+    from repro_torch.optim import SGDConfig, sgd_init, sgd_update
+
+    c = CONVNET_TRAIN
+    data = SyntheticImages(shape=(28, 28, 1), n_samples=c["n_samples"], seed=0)
+    model = ConvNet(width=c["width"], seed=0, device=device)
+    params = list(model.parameters())
+    opt = sgd_init(params)
+    scfg = SGDConfig(momentum=c["momentum"], weight_decay=c["weight_decay"])
+    B = c["global_batch"]
+    losses = []
+    for step in range(c["steps"]):
+        batch = data.batch(np.arange(step * B, (step + 1) * B) % len(data))
+        x = torch.from_numpy(batch["images"]).to(device)
+        y = torch.from_numpy(batch["labels"]).to(device)
+        loss = xent_loss(model(x), y)
+        grads = torch.autograd.grad(loss, params)
+        sgd_update(grads, opt, params, c["lr"], scfg)
+        losses.append(float(loss.detach()))
+    with torch.no_grad():
+        return losses, float(xent_loss(model(x), y))
+
+
+def phase_convnet():
+    """The paper's ConvNet, VGG-s and ResNet-s on the card against the same weights on the CPU, their
+    forward+backward rate with TF32 off and on, and ConvNet's 30-step SGD run."""
+    from repro_torch.models.convnet import CONVNET_ARCHS, build_convnet
+
+    c = CONVNET
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        for arch in CONVNET_ARCHS:
+            xs, ys = _convnet_input(arch, c["batch"], c["seed"])
+            x_cpu, y_cpu = torch.from_numpy(xs), torch.from_numpy(ys)
+            x, y = x_cpu.cuda(), y_cpu.cuda()
+            make = lambda dev: build_convnet(arch, width=c["width"], seed=c["seed"], device=dev)  # noqa: E731
+            want64_logits, want64 = _convnet_grads(make("cpu").double(), x_cpu.double(), y_cpu)
+            got64_logits, got64 = _convnet_grads(make("cuda").double(), x.double(), y)
+            gap64 = max([_rel_gap({"l": got64_logits}, {"l": want64_logits})["l"], *_rel_gap(got64, want64).values()])
+            want_logits, want_grads = _convnet_grads(make("cpu"), x_cpu, y_cpu)
+            cpu32_vs_64 = max(_rel_gap(want_grads, want64).values())
+            card = make("cuda")
+            gaps, rate = {}, {}
+            for tf32 in (False, True):
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+                logits, grads = _convnet_grads(card, x, y)
+                g = _rel_gap(grads, want64)
+                gaps[tf32] = dict(logits_vs_cpu32=_rel_gap({"l": logits}, {"l": want_logits})["l"],
+                                  grad_vs_cpu64=max(g.values()), worst_grad=max(g, key=g.get),
+                                  grad_vs_cpu32=max(_rel_gap(grads, want_grads).values()))
+                ms = time_ms(lambda: _convnet_grads(card, x, y), iters=c["iters"], warmup=3)
+                rate[tf32] = c["batch"] / ms * 1e3
+            ok = (gap64 <= CONVNET_F64_RTOL and gaps[False]["logits_vs_cpu32"] <= CONVNET_RTOL
+                  and gaps[False]["grad_vs_cpu64"] <= CONVNET_F32_GRAD_RTOL)
+            log(phase="convnet", arch=arch, batch=c["batch"], width=c["width"], input=list(xs.shape[1:]),
+                params=sum(p.numel() for p in card.parameters()), float64_gap=gap64, cpu32_grad_vs_cpu64=cpu32_vs_64,
+                gap_tf32_off=gaps[False], gap_tf32_on=gaps[True], tol=dict(float64=CONVNET_F64_RTOL,
+                logits=CONVNET_RTOL, grad=CONVNET_F32_GRAD_RTOL), images_per_s_tf32_off=rate[False],
+                images_per_s_tf32_on=rate[True], ok=ok, nvidia_smi=SMI)
+            check(ok and bool(torch.isfinite(logits).all()), f"convnet {arch}: card vs CPU past its tolerance")
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        t0 = time.perf_counter()
+        card_steps, card_loss = _convnet_train("cuda")
+        card_s = time.perf_counter() - t0
+        cpu_steps, cpu_loss = _convnet_train("cpu")
+        step_gap = max(abs(a - b) for a, b in zip(card_steps, cpu_steps))
+        log(phase="convnet_train", **CONVNET_TRAIN, card_loss=card_loss, cpu_loss=cpu_loss,
+            gap=abs(card_loss - cpu_loss), step_losses_card=card_steps, max_step_gap=step_gap,
+            atol=CONVNET_TRAIN_ATOL, card_s=card_s, nvidia_smi=SMI)
+        check(np.isfinite(card_loss) and abs(card_loss - cpu_loss) <= CONVNET_TRAIN_ATOL,
+              f"convnet_train: card loss {card_loss} vs CPU {cpu_loss}")
+        check(step_gap <= CONVNET_TRAIN_ATOL, f"convnet_train: a step's loss parts from the CPU's by {step_gap}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; this test runs on the card only", file=sys.stderr)
@@ -2512,6 +2783,13 @@ def main() -> int:
     dist_gloo = timed("train_dist_gloo", phase_train_dist_gloo)
     torch.cuda.empty_cache()
     rwkv_train = timed("train_rwkv", phase_train_rwkv)
+    torch.cuda.empty_cache()
+    timed("protocol", phase_protocol)
+    params = init_params(cfg, seed=0, device="cuda")
+    paged_launches["protocol_engine"] = timed("protocol_engine", phase_protocol_engine, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    timed("convnet", phase_convnet)
     torch.cuda.empty_cache()
     accum_counts["by_path"] = {"train": accum_counts["launches"], "train_dist_nccl": dist_nccl,
                                "train_dist_gloo": dist_gloo["launches"], "train_rwkv": rwkv_train}

@@ -24,6 +24,12 @@ map like the parameters, to lists in ``named_parameters`` order, and the
 counters to device scalars.  ``reference_ndims`` gives each parameter's rank
 in the reference's stacked tree, which decides weight decay.
 
+The paper's convnets cross too (``convnet_params_from_jax``/
+``convnet_params_to_jax``): a convolution's HWIO kernel becomes OIHW, the
+dense ``fc`` stays (d_in, n_classes), a GroupNorm's ``{"gamma", "beta"}``
+becomes ``gammas.i``/``betas.i`` (VGG) or ``gn1_gamma``/``gn1_beta`` (a
+ResNet block).
+
 The tree's leaves are numpy arrays (``jax.tree.map(np.asarray, params)``);
 this module imports no JAX.
 """
@@ -41,6 +47,8 @@ from repro_torch.models.transformer import Transformer
 
 __all__ = [
     "LeafSpec",
+    "convnet_params_from_jax",
+    "convnet_params_to_jax",
     "params_from_jax",
     "params_to_jax",
     "reference_ndims",
@@ -225,3 +233,73 @@ def train_state_spec(state: dict, cfg: ModelConfig) -> dict:
 
     opt = {key: tree(val) if isinstance(val, list) else _spec(val) for key, val in state["opt"].items()}
     return {"params": tree(state["params"].parameters()), "opt": opt, "step": _spec(state["step"])}
+
+
+# ---------------------------------------------------------------------------
+# the paper's convnets (models.convnet)
+# ---------------------------------------------------------------------------
+
+
+def _convnet_names(arch: str, tree: dict) -> list[tuple[str, tuple, bool]]:
+    """(state-dict name, tree path, is a conv kernel) of every leaf of a
+    reference convnet tree, ``arch`` one of ``convnet.CONVNET_ARCHS``."""
+    if arch == "convnet":
+        return [("c1", ("c1",), True), ("c2", ("c2",), True), ("fc", ("fc",), False)]
+    if arch.startswith("vgg"):
+        out = []
+        for i in range(len(tree["convs"])):
+            out += [(f"convs.{i}", ("convs", i), True), (f"gammas.{i}", ("gns", i, "gamma"), False),
+                    (f"betas.{i}", ("gns", i, "beta"), False)]
+        return out + [("fc", ("fc",), False)]
+    if arch.startswith("resnet"):
+        out = [("stem", ("stem",), True)]
+        for i, blk in enumerate(tree["blocks"]):
+            out += [(f"blocks.{i}.c1", ("blocks", i, "c1"), True), (f"blocks.{i}.c2", ("blocks", i, "c2"), True)]
+            for g in ("gn1", "gn2"):
+                out += [(f"blocks.{i}.{g}_{k}", ("blocks", i, g, k), False) for k in ("gamma", "beta")]
+            if "proj" in blk:
+                out.append((f"blocks.{i}.proj", ("blocks", i, "proj"), True))
+        return out + [("fc", ("fc",), False)]
+    raise ValueError(f"unknown convnet arch {arch!r}")
+
+
+def convnet_params_from_jax(tree: dict, arch: str) -> dict[str, torch.Tensor]:
+    """The reference's convnet tree (numpy leaves) as a ``state_dict`` of the
+    port's model of ``arch``: HWIO kernels to OIHW, the rest as they are."""
+    out = {}
+    for name, path, conv in _convnet_names(arch, tree):
+        leaf = tree
+        for k in path:
+            leaf = leaf[k]
+        a = np.asarray(leaf, np.float32)
+        out[name] = torch.from_numpy(np.array(a.transpose(3, 2, 0, 1) if conv else a, copy=True, order="C"))
+    return out
+
+
+def convnet_params_to_jax(state: dict, arch: str) -> dict:
+    """The inverse of :func:`convnet_params_from_jax`: a port model's
+    ``state_dict`` (any device) as the reference's tree of numpy arrays."""
+    state = {k: v.detach().cpu().numpy() for k, v in state.items()}
+    if arch == "convnet":
+        tree: dict = {}
+    elif arch.startswith("vgg"):
+        n = sum(1 for k in state if k.startswith("convs."))
+        tree = {"convs": [None] * n, "gns": [{} for _ in range(n)]}
+    elif arch.startswith("resnet"):
+        n = len({k.split(".")[1] for k in state if k.startswith("blocks.")})
+        tree = {"blocks": [{"gn1": {}, "gn2": {}} for _ in range(n)]}
+        for i in range(n):
+            if f"blocks.{i}.proj" in state:
+                tree["blocks"][i]["proj"] = None
+    else:
+        raise ValueError(f"unknown convnet arch {arch!r}")
+    names = _convnet_names(arch, tree)
+    if {n for n, _, _ in names} != set(state):
+        raise ValueError(f"state_dict keys {sorted(state)} are not a {arch} model's")
+    for name, path, conv in names:
+        node = tree
+        for k in path[:-1]:
+            node = node[k]
+        a = state[name]
+        node[path[-1]] = np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if conv else a
+    return tree

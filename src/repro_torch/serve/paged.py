@@ -139,12 +139,16 @@ class PagePool:
 
     # -- reporting -----------------------------------------------------------
 
+    def slot_pages(self, slot: int) -> list[int]:
+        return [int(p) for p in self.table[slot] if p >= 0]
+
     def check_leak_free(self) -> None:
         """Every page is either free or in exactly one table row.
 
         Raises ``RuntimeError`` (not ``assert`` — the check must survive
-        ``python -O``) naming the held/free sets on violation.
-        ``ServeEngine`` runs it on every ``reset()``.
+        ``python -O``) naming the held/free sets on violation.  The protocol
+        model checker runs this on every reachable state; ``ServeEngine``
+        runs it on every ``reset()``.
         """
         held = [int(p) for p in self.table.ravel() if p >= 0]
         seen = held + self._free
@@ -153,6 +157,17 @@ class PagePool:
                 f"page accounting broken: held={sorted(held)} free={sorted(self._free)} "
                 f"should partition 0..{self.layout.n_pages - 1}"
             )
+
+    def fingerprint(self) -> tuple:
+        """Canonical hashable state for the protocol model checker: the page
+        table, the exact free-list ORDER (LIFO determinism is part of the
+        contract), and the reservation/allocation accounting."""
+        return (
+            tuple(tuple(int(p) for p in row) for row in self.table),
+            tuple(self._free),
+            tuple(int(r) for r in self._reserved),
+            tuple(int(a) for a in self._allocated),
+        )
 
     def metrics(self) -> dict:
         return {

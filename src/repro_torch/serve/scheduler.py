@@ -1,6 +1,5 @@
 """Request queue, admission policy, and the serve loop (a copy of
-``repro.serve.scheduler``, less the protocol model checker's
-``Scheduler.fingerprint``).
+``repro.serve.scheduler``).
 
 Time is measured in *ticks* (one engine decode step == 1.0): deterministic
 on CPU, and the unit the router's virtual clocks scale by replica speed.
@@ -82,6 +81,18 @@ class Scheduler:
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
+
+    def fingerprint(self) -> tuple:
+        """Canonical hashable state for the protocol model checker: the
+        admission policy plus the FIFO queue as (prompt_len, max_gen) shapes
+        — request ids are bookkeeping, not behavior, so they stay out (two
+        queues of identical shapes must merge in the state graph)."""
+        return (
+            self.config.max_waiting_prefill,
+            self.config.continuous,
+            tuple((int(r.prompt.shape[0]), int(r.max_gen)) for r in self.queue),
+            tuple((int(s["pos"]), int(s["generated"]), int(s["max_gen"])) for s in self.preempted),
+        )
 
     def admit(self, engine, now: float) -> list[tuple]:
         """Admit FIFO-ordered requests into free slots; returns [(rid, tokens)]

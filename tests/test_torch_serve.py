@@ -216,6 +216,9 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.dist.hetero_step, repro_torch.optim, repro_torch.core, repro_torch.data\n"
         "import repro_torch.checkpoint, repro_torch.obs, repro_torch.traces, repro_torch.traces.campaign\n"
         "import repro_torch.traces.synth, repro_torch.serve.router, repro_torch.traces.serve_campaign\n"
+        "import repro_torch.analysis, repro_torch.analysis.cli, repro_torch.models.convnet\n"
+        "import repro_torch.examples.quickstart, repro_torch.examples.hetero_adaptive_training\n"
+        "import repro_torch.examples.fault_tolerant_train, repro_torch.examples.serve_decode\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
