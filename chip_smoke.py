@@ -237,8 +237,32 @@ nonzero exit and no result line, if anything is wrong:
     batch 100, lr 0.01, momentum 0.9, weight decay 1e-4) on the card and on
     the CPU: every step's loss and the final loss within 1e-3.  TF32 is
     restored afterwards.
+24. The launch plan (``dryrun``): ``launch.dryrun``'s cells of
+    ``DRYRUN_CELLS`` (smollm-360m's three runnable cells and olmoe-1b-7b's
+    train_4k, on data8_8x1 and single_pod_16x16) in ``DRYRUN_JOBS`` processes
+    on the card's host: every cell plans with no error; ``HW`` against
+    ``torch.cuda.get_device_properties(0)``: an H100 whose memory holds
+    ``HW.HBM_BYTES``.
+25. The plan held to the allocator (``dryrun_card``): smollm-360m at full
+    width and depth, data8_8x1's rank of decode_32k (16 slots of 32,768
+    tokens) and of prefill_32k (4 prompts of 32,768 tokens, flash), built on
+    the card (seed-0 weights) and run once: the planned parameter and cache
+    bytes against the ``memory_allocated()`` deltas within
+    ``PLAN_PERSISTENT_RTOL``, the planned peak against
+    ``max_memory_allocated()`` within ``PLAN_PEAK_RTOL``, the planned FLOPs
+    (less the kernels' share, which FlopCounterMode does not see) equal to
+    FlopCounterMode's over the card's step; train_4k's planned state
+    (params + AdamW) against ``init_train_state``'s allocation.
+26. The kernel audit on the card (``kernel_audit``): every case of the
+    kernel phase (flash, paged, rwkv6_scan; weighted_accum's trees in
+    place), each kernel once under torch.profiler after a warm-up pass: the
+    grid, block and shared memory of each launch in the trace equal
+    ``analysis.kernels``' mirror of its launcher.
+27. The analysis CLI (``analysis``): ``python -m repro_torch.analysis``
+    (all five targets) twice in process: exit 0 both times, byte-identical
+    reports, no stale pragma.
 
-The three phases above run after every serving and training path and
+The phases from 21 on run after every serving and training path and
 before the timing phase, so that protocol_engine's launches are on the
 kernels line.  The flash and paged rows of the kernels line count their launches on every
 serving path (``launches_by_path``); the weighted_accum row counts those of
@@ -2708,6 +2732,260 @@ def phase_convnet():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+# dryrun: the port's dry run on the card's host, smollm-360m's runnable cells and olmoe-1b-7b's train_4k
+DRYRUN_CELLS = [(arch, shape, mesh) for mesh in ("data8", "single")
+                for arch, shape in [("smollm-360m", s) for s in ("train_4k", "prefill_32k", "decode_32k")]
+                + [("olmoe-1b-7b", "train_4k")]]
+DRYRUN_JOBS = 8  # cells planned in parallel processes, one a core: all 8 at once
+# dryrun_card: the plan held to the allocator, set before the first reading: bytes of persistent tensors
+# (parameters, AdamW state, caches) within 1 % of the memory_allocated() deltas, the step's peak within
+# 10 % of max_memory_allocated(), the FLOPs equal to FlopCounterMode's over the card's own step
+PLAN_PERSISTENT_RTOL = 0.01
+PLAN_PEAK_RTOL = 0.10
+# kernel_audit: the profiler's names of the four kernels
+AUDIT_KERNELS = ("flash_fwd", "paged_split_kernel", "rwkv6_fwd_kernel", "accum_tree_kernel")
+
+
+def phase_dryrun():
+    """The dry run of ``DRYRUN_CELLS`` (every one plans, no error); ``HW`` against the card."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HW
+
+    props = torch.cuda.get_device_properties(0)
+    log(phase="dryrun_hw", name=props.name, total_memory=props.total_memory, hw_hbm_bytes=HW.HBM_BYTES,
+        hw_peak_flops_bf16=HW.PEAK_FLOPS_BF16, hw_hbm_bw=HW.HBM_BW, nvidia_smi=SMI)
+    check("H100" in props.name, f"HW holds the H100's constants; the card is {props.name}")
+    check(HW.HBM_BYTES <= props.total_memory, f"HW.HBM_BYTES {HW.HBM_BYTES} above the card's {props.total_memory}")
+    t0 = time.perf_counter()
+    records = dryrun.run_cells([(arch, mesh, shape) for arch, shape, mesh in DRYRUN_CELLS], jobs=DRYRUN_JOBS)
+    for r in records:
+        log(phase="dryrun", **{k: r.get(k) for k in (
+            "arch", "shape", "mesh", "status", "error", "state_bytes", "cache_bytes", "held", "working_bytes",
+            "peak_bytes", "fits_hbm", "flops_per_dev", "analytic_flops_ratio", "collectives",
+            "collectives_refused")})
+    log(phase="dryrun_seconds", cells=len(records), seconds=time.perf_counter() - t0, jobs=DRYRUN_JOBS)
+    check(all(r["status"] == "ok" for r in records), "dryrun: every cell plans with no error")
+
+
+def _planned(arch, shape_name, mesh_key):
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import plan_cell
+
+    plan = plan_cell(arch, shape_name, dryrun.MESHES[mesh_key][1])
+    return plan, dryrun.measure_model_run(plan), dryrun._held(plan)
+
+
+def _plan_row(what, planned, measured, rtol):
+    ratio = planned / measured if measured else float("inf")
+    ok = abs(planned - measured) <= rtol * measured
+    log(phase="dryrun_card", what=what, planned=planned, measured=measured, ratio=ratio, rtol=rtol, ok=ok,
+        nvidia_smi=SMI)
+    return ok
+
+
+def phase_dryrun_card():
+    """smollm-360m's decode_32k and prefill_32k on data8_8x1 (one rank: 16 slots of 32,768 tokens, model
+    axis 1, so one card holds it), built on the card and run once; train_4k's state on the same mesh."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.dist.hetero_step import init_train_state
+    from repro_torch.models import transformer
+
+    results = {}
+    for shape_name in ("decode_32k", "prefill_32k"):
+        plan, run, held = _planned("smollm-360m", shape_name, "data8")
+        cfg, B, S = plan.cfg, plan.rows, plan.seq
+        _free_card()
+        base = torch.cuda.memory_allocated()
+        params = transformer.init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        m_params = torch.cuda.memory_allocated() - base
+        cache = transformer.init_cache(cfg, B, S, device="cuda")
+        torch.cuda.synchronize()
+        m_cache = torch.cuda.memory_allocated() - base - m_params
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            if shape_name == "decode_32k":
+                toks = torch.zeros((B,), dtype=torch.int32, device="cuda")
+                logits, _ = transformer.decode_step(params, cache, toks, cfg)
+            else:
+                toks = torch.zeros((B, S), dtype=torch.int32, device="cuda")
+                lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
+                logits, _ = transformer.prefill(params, cache, toks, lengths, cfg, attn_impl="flash")
+            torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        finite = bool(torch.isfinite(logits.float()).all())
+        planned_peak = sum(held.values()) + plan.batch_bytes_per_dev + run["working_bytes"]
+        # the card counts torch's products; the kernels' share of the plan is theirs, which FlopCounterMode
+        # does not see: it is held instead to a closed form, the causal pairs S(S+1)/2 of every global
+        # layer's heads (QK^T and PV, multiply and add), and a dense decode runs no kernel
+        card_flops = int(fc.get_total_flops())
+        n_attn = sum(spec.kind == "attn" and spec.attn_type == "global" for spec in cfg.layer_specs())
+        kernel_closed = 0 if shape_name == "decode_32k" else 4 * B * cfg.n_heads * cfg.head_dim * n_attn * S * (S + 1) // 2
+        ok = [_plan_row(f"{shape_name} params", held["state"], m_params, PLAN_PERSISTENT_RTOL),
+              _plan_row(f"{shape_name} cache", held["cache"], m_cache, PLAN_PERSISTENT_RTOL),
+              _plan_row(f"{shape_name} peak", planned_peak, peak, PLAN_PEAK_RTOL)]
+        torch_flops = run["flops"] - run["kernel_flops"]
+        log(phase="dryrun_card", what=f"{shape_name} flops", planned=torch_flops, measured=card_flops,
+            equal=torch_flops == card_flops, kernel_flops=run["kernel_flops"], kernel_flops_closed_form=kernel_closed,
+            step_s=step_s, logits_finite=finite, rows=B, seq=S, nvidia_smi=SMI)
+        check(all(ok), f"dryrun_card {shape_name}: planned bytes within tolerance of the allocator's")
+        check(torch_flops == card_flops, f"dryrun_card {shape_name}: FLOPs equal")
+        check(run["kernel_flops"] == kernel_closed,
+              f"dryrun_card {shape_name}: the kernels' planned FLOPs {run['kernel_flops']} are not the closed "
+              f"form's {kernel_closed}")
+        check(finite, f"dryrun_card {shape_name}: finite logits")
+        results[shape_name] = {"params": m_params, "cache": m_cache, "peak": peak}
+        del params, cache, logits, toks
+    plan, _, held = _planned("smollm-360m", "train_4k", "data8")
+    _free_card()
+    base = torch.cuda.memory_allocated()
+    state = init_train_state(plan.cfg, plan.scfg, seed=0, opt_cfg=plan.opt_cfg, device="cuda")
+    torch.cuda.synchronize()
+    m_state = torch.cuda.memory_allocated() - base
+    check(_plan_row("train_4k state (params + AdamW)", plan.state_bytes_per_dev, m_state, PLAN_PERSISTENT_RTOL),
+          "dryrun_card train_4k: planned state bytes within 1 % of the allocation")
+    del state
+    _free_card()
+    return results
+
+
+def _profiled_geometry(run_all):
+    """The (grid, block, shared memory) of every launch of the four kernels in one
+    ``run_all()``, in launch order, from torch.profiler's trace (traced after a
+    warm-up run of the same body)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+            for _ in range(2):
+                run_all()
+                torch.cuda.synchronize()
+                prof.step()
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel" and any(k in e.get("name", "")
+                      for k in AUDIT_KERNELS)), key=lambda e: e["ts"])
+    return [{"grid": list(e["args"].get("grid", [])), "block": list(e["args"].get("block", [])),
+             "shared_memory": e["args"].get("shared memory"), "name": e["name"].split("(")[0][-40:]}
+            for e in kernels]
+
+
+def phase_kernel_audit(workload_lengths):
+    """Each kernel once at every case of the kernel phase, under torch.profiler: the grid, block and shared
+    memory it launched with equal ``analysis.kernels``' mirror of its launcher."""
+    from repro_torch.analysis import kernels as audit
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.weighted_accum import DTYPES
+    from repro_torch.models import Transformer
+
+    calls, expected, labels = [], [], []
+
+    def add(label, fn, launches):
+        calls.append(fn)
+        expected.extend(launch.geometry() for launch in launches)
+        labels.extend(f"{label} #{i}" for i in range(len(launches)))
+
+    dname = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
+    for dtype in (torch.bfloat16, torch.float32):
+        flash = [(1, S, S, 15, 5, 64, True, None, 0.0, 0) for S in (16, 64, 256)]
+        flash += list(FLASH_CASES) + list(FLASH_WGMMA_CASES) + list(DENSE_FLASH_CASES.values())
+        for B, Sq, Sk, H, Hkv, Dh, causal, window, softcap, qoff in flash:
+            q, k, v = flash_inputs(B, Sq, Sk, H, Hkv, Dh, dtype, seed=1)
+            kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
+            add(f"flash {dname[dtype]} {(B, Sq, Sk, H, Hkv, Dh, causal, window, qoff)}",
+                lambda q=q, k=k, v=v, kw=kw: ops.flash_attention(q, k, v, **kw),
+                [audit.flash_launch(B, Sq, Sk, H, Hkv, Dh, dname[dtype], causal, window, qoff)])
+        paged = [(workload_lengths, 15, 5, 64, 16, 160, 20, None, False)]
+        paged += [(lens, H, Hkv, 64, 4, 12, 6, w, False) for lens, H, Hkv, w, _ in PAGED_CASES]
+        paged += [(lens, 15, 5, 64, 2, n or sum(-(-x // 2) for x in lens), p or max(-(-x // 2) for x in lens) + 2,
+                   None, False) for _, lens, n, p in PAGED_PAGE2_CASES]
+        paged += [(workload_lengths, 15, 5, 64, 16, 160, 20, w, True) for w in (None, 40)]
+        for lens, H, Hkv, Dh, window, int8 in DENSE_PAGED_CASES.values():
+            pages = [-(-x // 16) for x in lens]
+            paged.append((lens, H, Hkv, Dh, 16, sum(pages), max(pages) + 2, window, int8))
+        for lens, H, Hkv, Dh, page, n_pages, p_max, window, int8 in paged:
+            q, kp, vp, table, ln = paged_inputs(lens, H, Hkv, Dh, page, n_pages, p_max, dtype, seed=2)
+            args = (q, kp, vp, table, ln)
+            if int8:
+                (k_i, k_s), (v_i, v_s) = quant_int8(kp), quant_int8(vp)
+                args = (q, k_i, v_i, table, ln, k_s, v_s)
+            kv_bytes = args[1].element_size()
+            add(f"paged {dname[dtype]} lengths={lens} H={H}/{Hkv} Dh={Dh} page={page} window={window} int8={int8}",
+                lambda args=args, window=window: ops.paged_attention(*args, window=window),
+                [audit.paged_launch(lens, table.cpu().numpy(), n_pages + 1, page, H, Hkv, Dh, kv_bytes, window)])
+    for B, T, H, D, chunk, w_min in [*RWKV_CASES, (*RWKV_SERVE, float(np.exp(-4.0))),
+                                     (1, 8, 32, 64, 32, 0.5), (1, 16, 32, 64, 32, 0.5)]:
+        r, k, v, w, u, s0 = rwkv_inputs(B, T, H, D, w_min, seed=3)
+        add(f"rwkv6 {(B, T, H, D, chunk)}", lambda a=(r, k, v, w, u, s0), c=chunk: ops.rwkv6_scan(*a, chunk=c),
+            [audit.rwkv_launch(B, T, H, D, chunk)])
+    g = torch.Generator(device="cuda").manual_seed(11)
+    f32, bf = torch.float32, torch.bfloat16
+    base = torch.randn((70_000,), generator=g, device="cuda")
+    trees = {
+        "smollm-360m gradient tree": [((p.numel(),), f32, f32) for p in
+                                      Transformer(get_config("smollm-360m"), torch.device("meta")).parameters()],
+        "mixed sizes": [(sh, f32, f32) for sh in ((1000,), (1,), (0,), (960,), (33, 77), (2560, 960), (0, 4))],
+        "mixed dtype groups": [((n,), a, b) for n in (4097, 1, 960, 33) for a in (f32, bf) for b in (f32, bf)],
+    }
+    for label, spec in trees.items():
+        accs = [torch.randn(sh, generator=g, device="cuda").to(a) for sh, a, _ in spec]
+        grads = [torch.randn(sh, generator=g, device="cuda").to(b) for sh, _, b in spec]
+        trees[label] = (accs, grads)
+    views = [(1, 4100), (4103, 4110), (4111, 20_000), (20_003, 20_004), (20_005, 69_999)]
+    trees["odd-offset views"] = ([base[a:b] for a, b in views],
+                                 [torch.randn((b - a + 3,), generator=g, device="cuda")[3:] for a, b in views])
+    for label, (accs, grads) in trees.items():
+        numels = [a.numel() for a in accs]
+        launches = audit.accum_launches(numels, [DTYPES[a.dtype] for a in accs], [DTYPES[x.dtype] for x in grads],
+                                        [a.data_ptr() for a in accs], [x.data_ptr() for x in grads],
+                                        [a.data_ptr() for a in accs])
+        add(f"weighted_accum tree {label}, in place",
+            lambda a=accs, gr=grads: ops.weighted_accum_tree(a, gr, 1.0, out=a), launches)
+    torch.cuda.synchronize()
+
+    def run_all():
+        for fn in calls:
+            fn()
+
+    got = _profiled_geometry(run_all)
+    mism = [(lab, e, {k: v for k, v in o.items() if k != "name"}) for lab, e, o in zip(labels, expected, got)
+            if e != {k: v for k, v in o.items() if k != "name"}]
+    log(phase="kernel_audit", launches_expected=len(expected), launches_traced=len(got), mismatches=len(mism),
+        first_mismatches=[{"case": lab, "mirror": e, "traced": o} for lab, e, o in mism[:8]],
+        examples=[{"case": lab, "mirror": e} for lab, e in list(zip(labels, expected))[:: max(1, len(labels) // 6)]],
+        nvidia_smi=SMI)
+    check(len(got) == len(expected), f"kernel_audit: {len(got)} traced launches, {len(expected)} expected")
+    check(not mism, f"kernel_audit: {len(mism)} launches differ from the mirror")
+    return len(expected)
+
+
+def phase_analysis():
+    """``python -m repro_torch.analysis`` (all targets) twice in this process: exit 0, byte-identical reports."""
+    from repro_torch.analysis import cli
+
+    with tempfile.TemporaryDirectory() as d:
+        rcs, blobs, secs = [], [], []
+        for i in range(2):
+            out = os.path.join(d, f"report{i}.json")
+            t0 = time.perf_counter()
+            rcs.append(cli.main(["--json-out", out]))
+            secs.append(time.perf_counter() - t0)
+            with open(out, "rb") as fh:
+                blobs.append(fh.read())
+        report = json.loads(blobs[0])
+    log(phase="analysis", rcs=rcs, seconds=secs, identical=blobs[0] == blobs[1], summary={
+        k: report["summary"][k] for k in ("n_error", "n_warning", "n_note", "n_suppressed", "targets_run")},
+        note="host-side analysis; no kernel runs", nvidia_smi=SMI)
+    check(rcs == [0, 0], f"analysis: exit codes {rcs}")
+    check(blobs[0] == blobs[1], "analysis: the two reports are byte-identical")
+    check(not any(f["rule"] == "stale-pragma" for f in report["findings"]), "analysis: no stale pragma")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2791,6 +3069,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("convnet", phase_convnet)
     torch.cuda.empty_cache()
+    timed("dryrun", phase_dryrun)
+    timed("dryrun_card", phase_dryrun_card)
+    torch.cuda.empty_cache()
+    timed("kernel_audit", phase_kernel_audit, paged_lengths)
+    torch.cuda.empty_cache()
+    timed("analysis", phase_analysis)
     accum_counts["by_path"] = {"train": accum_counts["launches"], "train_dist_nccl": dist_nccl,
                                "train_dist_gloo": dist_gloo["launches"], "train_rwkv": rwkv_train}
     accum_counts["ring_launches"] = dist_gloo["ring_launches"]

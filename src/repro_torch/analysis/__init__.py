@@ -1,11 +1,17 @@
 """Static analysis of the port (``repro_torch``).
 
-``python -m repro_torch.analysis [--target protocol|all]`` proves protocol
-safety: bounded explicit-state model checking of the elastic membership
-protocol and paged-KV admission over the port's REAL production classes
-(``repro_torch.analysis.protocol``), with minimized replayable
-counterexample scripts on violation.  The JAX package's jaxpr and Pallas
-audits have no counterpart here yet.
+``python -m repro_torch.analysis [--target train|serve|kernels|specs|protocol|all]``:
+
+* collective uniformity of the train and serve steps, from per-rank
+  collective traces (``recorder``, ``collectives``, ``fixtures``);
+* the CUDA kernels' launch audit: block origins, the paged scratch page,
+  shared memory (``kernels``);
+* the spec audit of every config on every declared mesh (``specs_audit``);
+* protocol safety: bounded explicit-state model checking of the elastic
+  membership protocol and paged-KV admission over the port's REAL
+  production classes (``repro_torch.analysis.protocol``), with minimized
+  replayable counterexample scripts on violation;
+* the cost model the dry run holds its FLOP counts to (``costmodel``).
 
 See ``cli.py`` for the entry point, ``findings.py`` for the report format.
 """

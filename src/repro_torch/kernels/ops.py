@@ -2,7 +2,9 @@
 
 A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
 to the CUDA kernel, which launches or raises.  Nothing falls back: the
-caller chooses the device.  Signatures mirror ``repro.kernels.ops``.
+caller chooses the device.  A meta tensor (the launch plan's shape-only run,
+``launch.specs``) gets empty results of the kernel's output shapes: nothing
+runs and no launch is counted.  Signatures mirror ``repro.kernels.ops``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ _WRAPPERS = {
 
 
 def _route(t: torch.Tensor) -> str:
-    if t.device.type in ("cpu", "cuda"):
+    if t.device.type in ("cpu", "cuda", "meta"):
         return t.device.type
     raise ValueError(f"no kernel route for device {t.device}")
 
@@ -43,13 +45,19 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal=True, window=None
     """Signature-compatible with the reference's kernel hook.  ``q_pos``/``k_pos``
     are accepted for interface parity; positions come from ``q_offset``
     (contiguous layouts only), as in the reference."""
-    fn = _fa.flash_attention_cuda if _route(q) == "cuda" else _fa.flash_attention_ref
+    route = _route(q)
+    if route == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
+    fn = _fa.flash_attention_cuda if route == "cuda" else _fa.flash_attention_ref
     return fn(q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset)
 
 
 def paged_attention(q, k_pool, v_pool, pages, lengths, k_scale=None, v_scale=None, *, window=None, softcap=0.0):
     """Ragged paged-decode attention; see ``kernels.paged_attention`` for the layout."""
-    fn = _pa.paged_attention_cuda if _route(q) == "cuda" else _pa.paged_attention_ref
+    route = _route(q)
+    if route == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
+    fn = _pa.paged_attention_cuda if route == "cuda" else _pa.paged_attention_ref
     return fn(q, k_pool, v_pool, pages, lengths, k_scale, v_scale, window=window, softcap=softcap)
 
 
@@ -57,7 +65,13 @@ def rwkv6_scan(r, k, v, w, u, s0=None, chunk: int = 32):
     """The RWKV6 WKV recurrence over chunks of ``min(chunk, T)`` tokens, which
     must divide T; see ``kernels.rwkv6_scan`` for the layout.  The plain
     version is the sequential recurrence, which gives the same result."""
-    if _route(r) == "cuda":
+    route = _route(r)
+    if route == "meta":
+        B, T, H, D = r.shape
+        _rw.chunk_for(T, chunk)
+        return (torch.empty(r.shape, dtype=torch.float32, device="meta"),
+                torch.empty((B, H, D, D), dtype=torch.float32, device="meta"))
+    if route == "cuda":
         return _rw.rwkv6_scan_cuda(r, k, v, w, u, s0, chunk=chunk)
     _rw.chunk_for(r.shape[1], chunk)
     return _rw.rwkv6_scan_ref(r, k, v, w, u, s0)
@@ -67,7 +81,10 @@ def weighted_accum(acc, g, scale, out=None):
     """``acc + scale * g`` in float32 arithmetic, cast to acc's dtype; see
     ``kernels.weighted_accum``.  ``out`` (optional) receives the result and may
     be ``acc`` itself; the plain version then copies into it."""
-    if _route(acc) == "cuda":
+    route = _route(acc)
+    if route == "meta":
+        return torch.empty(acc.shape, dtype=acc.dtype, device="meta") if out is None else out
+    if route == "cuda":
         return _wa.weighted_accum_cuda(acc, g, scale, out=out)
     res = _wa.weighted_accum_ref(acc, g, scale)
     return res if out is None else out.copy_(res)

@@ -11,12 +11,17 @@ The backend follows the device: ``nccl`` for ``cuda`` and ``gloo`` for
 ``backend="gloo"``, which the caller asks for by name; the collectives then
 stage CUDA tensors through pinned host memory.
 
-The reference's TPU constants (``HW``) and its 256-chip production mesh
-(``make_production_mesh``) have no counterpart here.
+``HW`` holds the roofline constants of the card the port runs on, an H100
+SXM (the reference's are a TPU v5e's).  ``make_production_mesh`` returns the
+reference's production meshes, 16 x 16 ("data", "model") and 2 x 16 x 16
+("pod", "data", "model"), as a :class:`StandinMesh`: their names and sizes,
+which is all the launch plan (``launch.specs``) and the spec audit read.  The
+machine has one card, so no such mesh is ever built of processes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 
@@ -24,7 +29,47 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-__all__ = ["default_backend", "join_process_group", "make_test_mesh"]
+__all__ = ["HW", "StandinMesh", "default_backend", "join_process_group", "make_production_mesh", "make_test_mesh"]
+
+
+class HW:
+    """H100 SXM roofline constants (per card): the dense peaks, HBM's rate and
+    size, and NVLink's rate (the counterpart of the reference's ICI link)."""
+
+    PEAK_FLOPS_BF16 = 989e12  # FLOP/s, dense
+    PEAK_FLOPS_F32 = 67e12  # FLOP/s, CUDA cores
+    HBM_BW = 3.35e12  # bytes/s
+    HBM_BYTES = 80e9  # capacity
+    NVLINK_BW = 900e9  # bytes/s per card, all links
+
+
+@dataclasses.dataclass(frozen=True)
+class StandinMesh:
+    """A mesh's axis names and sizes, without processes: ``shape`` is
+    ``{axis: size}`` and ``axis_names`` the axes in order, the two attributes
+    the spec assigners and ``launch.specs.train_partition`` read."""
+
+    axes: tuple  # ((axis, size), ...)
+
+    @property
+    def shape(self) -> dict:
+        return dict(self.axes)
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(a for a, _ in self.axes)
+
+    @property
+    def size(self) -> int:
+        return math.prod(s for _, s in self.axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> StandinMesh:
+    """The reference's production mesh: (16, 16) = ("data", "model"), or
+    (2, 16, 16) = ("pod", "data", "model") across two pods."""
+    if multi_pod:
+        return StandinMesh((("pod", 2), ("data", 16), ("model", 16)))
+    return StandinMesh((("data", 16), ("model", 16)))
 
 
 def default_backend(device_type: str) -> str:

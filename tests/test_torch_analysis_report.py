@@ -1,0 +1,27 @@
+"""The port's full analysis report (``python -m repro_torch.analysis``, every
+target): exit 0 and byte-identical across two runs in one process, no
+stale waiver found (a full run audits them), and per-microbatch FSDP's
+one-rank trace never reported uniform.  Exact (bytes).  About 40 s a
+run on the CPU, so it has a file of its own.
+"""
+
+from __future__ import annotations
+
+import json
+
+from repro_torch.analysis import cli
+
+
+def test_full_report_is_byte_identical_across_two_runs(tmp_path):
+    blobs = []
+    for i in range(2):
+        path = tmp_path / f"report{i}.json"
+        assert cli.main(["--json-out", str(path)]) == 0
+        blobs.append(path.read_bytes())
+    assert blobs[0] == blobs[1]
+    report = json.loads(blobs[0])
+    assert set(report["summary"]["targets_run"]) >= set(cli.TARGETS)
+    assert report["summary"]["n_error"] == 0
+    assert not any(f["rule"] == "stale-pragma" for f in report["findings"])
+    verdicts = {name: m["verdict"] for name, m in report["targets"]["train"].items()}
+    assert "uniform" not in {verdicts[f"train:masked-fsdp=True-{c}"] for c in ("psum", "ring")}

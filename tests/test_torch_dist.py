@@ -50,7 +50,7 @@ from repro.dist.sharding import param_specs as jax_param_specs
 from repro.models import transformer as jtf
 from repro.models.attention import PagedLayout as JPagedLayout
 from repro_torch.checkpoint import save_pytree
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.dist import compress_error_feedback, decompress_update, init_error_state
 from repro_torch.dist.sharding import cache_specs, param_specs, state_specs
 from repro_torch.launch import mesh as tmesh
@@ -273,7 +273,7 @@ def _reference_specs(arch, sizes, fsdp):
     return flat_s, flat_n
 
 
-@pytest.mark.parametrize("arch", [ARCH, "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", list_archs())
 @pytest.mark.parametrize("sizes", [{"data": 4, "model": 2}, {"data": 16, "model": 16}], ids=["4x2", "16x16"])
 @pytest.mark.parametrize("fsdp", [False, True])
 def test_param_and_state_specs_match_the_reference(arch, sizes, fsdp):

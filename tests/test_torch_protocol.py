@@ -367,7 +367,8 @@ def test_cli_exits_0_with_no_findings_and_the_documented_counts(port_cli):
     rc, d = port_cli
     rep = json.loads((d / "r1.json").read_text())
     assert rc == 0 and rep["findings"] == [] and rep["summary"]["n_error"] == 0
-    assert rep["summary"]["targets_run"] == ["protocol", "selftest_protocol"]
+    # as the reference's CLI: every run also runs the collective selftest and records the mesh
+    assert rep["summary"]["targets_run"] == ["mesh", "protocol", "selftest", "selftest_protocol"]
     assert _counts(rep["targets"]["protocol"]) == PORT_COUNTS
     for m in rep["targets"]["protocol"].values():
         assert m["exhausted"] and m["n_violations"] == 0 and m["truncated_by"] is None
@@ -461,7 +462,8 @@ def test_cli_exit_status_follows_unsuppressed_errors(monkeypatch, tmp_path):
     assert (tmp_path / "protocol-serve-01.txt").read_text().endswith("submit@0:1x3\n")
     monkeypatch.setattr(cli, "analyze_protocol", lambda: ([dataclasses.replace(bad, severity="warning")], {}))
     assert cli.main(["--target", "protocol"]) == 0
-    assert cli._pragma_scan_root(cli.TARGETS) is None  # the stale-pragma audit waits for every reference target
+    # the stale-pragma audit runs once every reference target runs: on "all", not on one target
+    assert cli._pragma_scan_root(cli.TARGETS) is not None and cli._pragma_scan_root(["protocol"]) is None
 
 
 # ---------------------------------------------------------------------------
