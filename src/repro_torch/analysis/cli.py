@@ -7,8 +7,9 @@ Targets (the reference's five):
   rank of a (4, 1) mesh in turn on meta tensors under a recording fake
   process group (``recorder``), and prove collective uniformity; the
   combinations ``validate`` refuses are checked against its verdict.
-  Per-microbatch FSDP (``fsdp=True``) has no multi-rank form in the port,
-  so its one-rank trace is recorded as ``"not checked"``.
+  Per-microbatch FSDP (masked, ``fsdp=True``) is traced on the same mesh,
+  its gathers and reduce-scatters run from each unit's forward and
+  backward, and must come out uniform as well.
 * ``serve``  — decode steps (dense and paged cache) on every rank: the
   decode path is collective-free, hence uniform; the paged launch's
   geometry is audited.
@@ -91,7 +92,7 @@ def _smoke_cfg():
 
 
 def _train_body(cfg, scfg, costs: list):
-    """One rank's train step of ``scfg`` on meta tensors (this rank's shards under gather)."""
+    """One rank's train step of ``scfg`` on meta tensors (this rank's shards where the state is sharded)."""
     from repro_torch.dist.hetero_step import build_train_step, shard_train_state
     from repro_torch.dist.sharding import param_specs
     from repro_torch.models import transformer
@@ -102,11 +103,11 @@ def _train_body(cfg, scfg, costs: list):
         params = transformer.Transformer(cfg, META).requires_grad_(True)
         state = {"params": params, "opt": adamw_init(list(params.parameters()), AdamWConfig()),
                  "step": torch.zeros((), dtype=torch.int32, device=META)}
-        if scfg.mode == "while" and scfg.fsdp == "gather":
+        if scfg.fsdp in ("gather", True):
             shard_train_state(state, param_specs(params, sizes, cfg, fsdp=True, fsdp_axes=scfg.fsdp_axes), mesh)
         R = sizes[scfg.alloc_axis]
         x = torch.empty((R, scfg.w_max, scfg.micro_bs, scfg.seq_len), dtype=torch.int32, device=META)
-        batch = {"inputs": x, "targets": x, "alloc": list(TRAIN_ALLOC[:R]) if R > 1 else [scfg.w_max]}
+        batch = {"inputs": x, "targets": x, "alloc": list(TRAIN_ALLOC)}
         step = build_train_step(cfg, scfg, opt_cfg=AdamWConfig(), mesh=mesh)
         est = estimate_cost(step, state, batch)
         costs.append({"flops": est["flops"], "bytes": est["bytes"]})
@@ -146,16 +147,11 @@ def analyze_train() -> tuple[list[Finding], dict]:
             meta[name] = {"validate": f"rejected: {e}", "verdict": f"{m['verdict']} (the deadlock fixture)",
                           "reference_combo": (mode, fsdp, collective) in TRAIN_COMBOS}
             continue
-        # the port builds per-microbatch FSDP on one allocation rank only (dist.hetero_step): one
-        # rank's trace has nothing to be compared with, so its verdict is "not checked"
-        mesh = (1, 1) if fsdp is True else MESH
         costs: list = []
-        f, m = check_collective_uniformity(trace_ranks(_train_body(cfg, scfg, costs), mesh, AXES), name)
+        f, m = check_collective_uniformity(trace_ranks(_train_body(cfg, scfg, costs), MESH, AXES), name)
         findings.extend(f)
-        m.update(validate="legal", mesh=list(mesh), alloc=list(TRAIN_ALLOC[: mesh[0]]) if mesh[0] > 1 else [3],
-                 cost=costs[0], reference_combo=(mode, fsdp, collective) in TRAIN_COMBOS)
-        if m["verdict"] == "not checked":
-            m["why"] = "fsdp=True has no multi-rank form in the port (dist.hetero_step); one rank traced"
+        m.update(validate="legal", mesh=list(MESH), alloc=list(TRAIN_ALLOC), cost=costs[0],
+                 reference_combo=(mode, fsdp, collective) in TRAIN_COMBOS)
         meta[name] = m
     return findings, meta
 

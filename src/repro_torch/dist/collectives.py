@@ -21,6 +21,11 @@ returns its input, as ``n == 1`` does in the reference.  Three pieces:
   reference's tree path) to a tensor, and its specs a dict with the same
   keys; a spec is a tuple of axis names or ``None``, one entry per
   dimension.
+* per-microbatch FSDP (:func:`gather_for_use`): an autograd operation
+  that all-gathers one unit's parameter shards (a block, the embedding,
+  the head) for the forward that uses them and reduce-scatters their
+  float32 gradients back to the shards in the backward, one collective a
+  unit and axis over the unit's shards packed flat.
 * error-feedback compression (:func:`init_error_state`,
   :func:`compress_error_feedback`, :func:`decompress_update`) over lists of
   tensors, with ``torch.topk`` for ``lax.top_k``.
@@ -31,12 +36,15 @@ moves bytes only, through pinned host memory, and every add stays on the
 card: :func:`all_reduce` takes the ring and the group reduce-scatter takes
 :func:`ring_reduce_scatter` (gloo's own reductions would add on the host).
 ``CommMeter`` counts the bytes the ring primitives send and their reduce
-steps.
+steps, every collective call made for a caller that passes it, and the
+bytes :func:`gather_for_use` gathers and reduces.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from collections.abc import Mapping, Sequence
 
 import torch
@@ -58,6 +66,8 @@ __all__ = [
     "all_reduce",
     "broadcast",
     "spec_dims",
+    "gather_for_use",
+    "all_reduce_flat",
     "init_error_state",
     "compress_error_feedback",
     "decompress_update",
@@ -76,6 +86,9 @@ class CommMeter:
     ring_bytes: int = 0
     reduce_steps: int = 0
     seconds: float = 0.0
+    calls: int = 0  # torch.distributed calls: each group collective and each ring rotation
+    gather_bytes: int = 0  # gather_for_use: bytes of the full parameters it rebuilt
+    scatter_bytes: int = 0  # gather_for_use: bytes of the float32 gradients it reduced back to shards
 
 
 def axis_groups(mesh) -> dict[str, object]:
@@ -101,8 +114,14 @@ def _wire(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` as the group sends it: a pinned host copy under gloo for a CUDA tensor."""
     if not _staged(t, group):
         return t.contiguous()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    return host.copy_(t)
+    return _pinned_like(t).copy_(t)
+
+
+def _pinned_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty pinned host tensor of ``t``'s shape and dtype, for a staged
+    exchange (so the copy to the card is a direct DMA; ``empty_like`` of a
+    pinned tensor is not pinned)."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
 
 
 def _exchange(send: torch.Tensor, group, meter: CommMeter | None) -> torch.Tensor:
@@ -111,7 +130,7 @@ def _exchange(send: torch.Tensor, group, meter: CommMeter | None) -> torch.Tenso
     ``[(i, (i + 1) % n)]``)."""
     n, idx = dist.get_world_size(group), dist.get_rank(group)
     out = _wire(send, group)
-    recv = torch.empty_like(out)
+    recv = _pinned_like(out) if _staged(send, group) else torch.empty_like(out)
     ops = [
         dist.P2POp(dist.isend, out, dist.get_global_rank(group, (idx + 1) % n), group),
         dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, (idx - 1) % n), group),
@@ -120,6 +139,7 @@ def _exchange(send: torch.Tensor, group, meter: CommMeter | None) -> torch.Tenso
         req.wait()
     if meter is not None:
         meter.ring_bytes += send.numel() * send.element_size()
+        meter.calls += 1
     return recv.to(send.device) if recv.device != send.device else recv
 
 
@@ -139,6 +159,8 @@ def all_reduce(x: torch.Tensor, group, meter: CommMeter | None = None) -> torch.
     if _staged(x, group):
         return ring_allreduce(x, group, meter)
     dist.all_reduce(x, group=group)
+    if meter is not None:
+        meter.calls += 1
     return x
 
 
@@ -263,17 +285,22 @@ def spec_dims(spec: Spec, ndim: int) -> list[tuple[int, tuple[str, ...]]]:
     return out
 
 
-def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, group, dim: int, meter: CommMeter | None = None) -> torch.Tensor:
     n = _size(group)
     if n == 1:
         return x
     wire = _wire(x, group)
-    parts = [torch.empty_like(wire) for _ in range(n)]
+    staged = _staged(x, group)
+    parts = [_pinned_like(x) if staged else torch.empty_like(wire) for _ in range(n)]
     dist.all_gather(parts, wire, group=group)
-    return torch.cat(parts, dim=dim).to(x.device)
+    if meter is not None:
+        meter.calls += 1
+    if staged:  # each part straight to the card, no concatenation on the host
+        parts = [p.to(x.device, non_blocking=True) for p in parts]
+    return torch.cat(parts, dim=dim)
 
 
-def _reduce_scatter(x: torch.Tensor, group, dim: int, label: str) -> torch.Tensor:
+def _reduce_scatter(x: torch.Tensor, group, dim: int, label: str, meter: CommMeter | None = None) -> torch.Tensor:
     n = _size(group)
     if n == 1:
         return x
@@ -281,6 +308,8 @@ def _reduce_scatter(x: torch.Tensor, group, dim: int, label: str) -> torch.Tenso
         raise _divisibility_error(x, dim, n, label, "group size")
     out = torch.empty_like(torch.chunk(x, n, dim=dim)[0])
     dist.reduce_scatter(out, [p.contiguous() for p in torch.chunk(x, n, dim=dim)], group=group)
+    if meter is not None:
+        meter.calls += 1
     return out
 
 
@@ -303,7 +332,7 @@ def all_gather_params(
                 if use_ring:
                     x = ring_all_gather(x, groups[ax], dim, meter)
                 else:
-                    x = _all_gather(x, groups[ax], dim)
+                    x = _all_gather(x, groups[ax], dim, meter)
         return x
 
     return {key: gather_leaf(x, specs[key]) for key, x in tree.items()}
@@ -338,7 +367,7 @@ def reduce_scatter_tree(
                     if use_ring or _staged(g, group):  # staged: the adds stay on the card
                         g = ring_reduce_scatter(g, group, dim, label=label, meter=meter)
                     else:
-                        g = _reduce_scatter(g, group, dim, label)
+                        g = _reduce_scatter(g, group, dim, label, meter)
                     remaining.remove(ax)
                 else:
                     n = _size(group)
@@ -350,6 +379,195 @@ def reduce_scatter_tree(
         return g
 
     return {label: scatter_leaf(label, g, specs[label]) for label, g in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# per-microbatch FSDP: gather a unit for its use, reduce its gradients back
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _UnitPlan:
+    specs: tuple  # one spec per shard of the unit
+    groups: Mapping[str, object]
+    reduce_axes: tuple[str, ...]
+    meter: CommMeter | None
+
+
+@contextlib.contextmanager
+def _metered(meter: CommMeter | None, like: torch.Tensor):
+    """Adds the block's seconds (the device synchronised) to the meter's."""
+    if meter is None:
+        yield
+        return
+    if like.is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yield
+    if like.is_cuda:
+        torch.cuda.synchronize()
+    meter.seconds += time.perf_counter() - t0
+
+
+def _schedule(chains: list[list[list[tuple[int, str]]]], dtypes: list):
+    """Packs per-tensor steps into collectives.  ``chains[i]`` holds tensor
+    ``i``'s chains of ``(dim, axis)`` steps, one a sharded dim, in the order
+    that dim needs them (steps on different dims commute).  Yields ``(axis,
+    [(i, dim)])``, one entry per (axis, dtype): each time the axis of the
+    first step that is ready, with every ready step over that axis, so a
+    unit takes one collective an axis (and dtype) wherever its layout allows.
+    Deterministic, so the same on every rank."""
+    heads = [[0] * len(c) for c in chains]
+    while True:
+        ready = [(i, d) for i, c in enumerate(chains) for d, chain in enumerate(c) if heads[i][d] < len(chain)]
+        if not ready:
+            return
+        i0, d0 = ready[0]
+        axis = chains[i0][d0][heads[i0][d0]][1]
+        by_dtype: dict = {}
+        for i, d in ready:
+            dim, ax = chains[i][d][heads[i][d]]
+            if ax == axis:
+                by_dtype.setdefault(dtypes[i], []).append((i, dim))
+                heads[i][d] += 1
+        for picked in by_dtype.values():
+            yield axis, picked
+
+
+def _gather_unit(shards: list[torch.Tensor], plan: _UnitPlan) -> list[torch.Tensor]:
+    """Full tensors from a unit's shards: each sharded dim rebuilt over its
+    axes minor first (``all_gather_params``'s layout), the shards of every
+    step over one axis packed flat into one ``_all_gather``."""
+    xs = list(shards)
+    chains = [[[(dim, ax) for ax in reversed(axes)] for dim, axes in spec_dims(s, x.ndim)]
+              for x, s in zip(xs, plan.specs, strict=True)]
+    for ax, picked in _schedule(chains, [x.dtype for x in xs]):
+        n = _size(plan.groups[ax])
+        flat = torch.cat([xs[i].reshape(-1) for i, _ in picked])
+        parts = _all_gather(flat, plan.groups[ax], 0, plan.meter).view(n, -1)
+        off = 0
+        for i, dim in picked:
+            x = xs[i]
+            piece = parts[:, off:off + x.numel()].reshape(n, *x.shape)  # rank-major: a cat along dim
+            xs[i] = piece.movedim(0, dim).reshape(*x.shape[:dim], n * x.shape[dim], *x.shape[dim + 1:])
+            off += x.numel()
+    return xs
+
+
+def _scatter_unit(grads: list[torch.Tensor], plan: _UnitPlan) -> list[torch.Tensor]:
+    """``reduce_scatter_tree`` over a unit's full gradients: each sharded dim
+    cut over its axes major first, by a reduce-scatter over a reduce axis
+    (the ring where staged) and by taking this rank's chunk over another,
+    every step over one axis packed flat into one collective; then one
+    ``all_reduce`` a reduce axis over the tensors that axis shards no dim of."""
+    gs = list(grads)
+    chains = [[[(dim, ax) for ax in axes] for dim, axes in spec_dims(s, g.ndim)]
+              for g, s in zip(gs, plan.specs, strict=True)]
+    rest = [list(plan.reduce_axes) for _ in gs]
+    for ax, picked in _schedule(chains, [g.dtype for g in gs]):
+        group = plan.groups[ax]
+        n = _size(group)
+        if ax not in plan.reduce_axes:  # the values are the same there: this rank's chunk, no sum
+            for i, dim in picked:
+                gs[i] = torch.chunk(gs[i], n, dim=dim)[dist.get_rank(group) if n > 1 else 0]
+            continue
+        rows = []
+        for i, dim in picked:
+            g = gs[i]
+            rest[i].remove(ax)
+            if g.shape[dim] % n:
+                raise _divisibility_error(g, dim, n, f"unit tensor {i}", "group size")
+            split = g.reshape(*g.shape[:dim], n, g.shape[dim] // n, *g.shape[dim + 1:]).movedim(dim, 0)
+            rows.append(split.reshape(n, -1))
+        flat = torch.cat(rows, dim=1).reshape(-1)  # chunk r: what rank r of the group keeps
+        if _staged(flat, group):  # the adds stay on the card
+            out = ring_reduce_scatter(flat, group, 0, meter=plan.meter)
+        else:
+            out = _reduce_scatter(flat, group, 0, "", plan.meter)
+        off = 0
+        for i, dim in picked:
+            g = gs[i]
+            m = g.numel() // n
+            gs[i] = out[off:off + m].view(*g.shape[:dim], g.shape[dim] // n, *g.shape[dim + 1:])
+            off += m
+    for ax in plan.reduce_axes:  # the axes that shard none of a tensor's dims: summed whole
+        idx = [i for i, r in enumerate(rest) if ax in r]
+        if idx:
+            flat = all_reduce(torch.cat([gs[i].reshape(-1) for i in idx]), plan.groups[ax], plan.meter)
+            gs = _unflatten(flat, gs, idx)
+    return gs
+
+
+def _unflatten(flat: torch.Tensor, tensors: list[torch.Tensor], idx: list[int]) -> list[torch.Tensor]:
+    """``tensors`` with those at ``idx`` replaced by their consecutive pieces of ``flat``."""
+    out, off = list(tensors), 0
+    for i in idx:
+        out[i] = flat[off:off + out[i].numel()].view(out[i].shape)
+        off += out[i].numel()
+    return out
+
+
+def all_reduce_flat(tensors: Sequence[torch.Tensor], group, meter: CommMeter | None = None) -> list[torch.Tensor]:
+    """:func:`all_reduce` of a list of tensors, those of one dtype packed flat
+    into one call; returns new tensors."""
+    out = list(tensors)
+    if _size(group) == 1:
+        return out
+    by: dict = {}
+    for i, t in enumerate(out):
+        by.setdefault(t.dtype, []).append(i)
+    for idx in by.values():
+        out = _unflatten(all_reduce(torch.cat([out[i].reshape(-1) for i in idx]), group, meter), out, idx)
+    return out
+
+
+class _GatherForUse(torch.autograd.Function):
+    """Forward: the unit's full parameters from their shards.  Backward: each
+    full gradient in float32, reduced back to its shard, as the gradient of
+    the shard's float32 anchor (the shards themselves take none)."""
+
+    @staticmethod
+    def forward(ctx, plan: _UnitPlan, *tensors):
+        shards = tensors[: len(tensors) // 2]
+        ctx.plan = plan
+        with _metered(plan.meter, shards[0]):
+            full = _gather_unit(list(shards), plan)
+        if plan.meter is not None:
+            plan.meter.gather_bytes += sum(f.numel() * f.element_size() for f in full)
+        return tuple(f.view_as(f) if f is s else f for f, s in zip(full, shards))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan = ctx.plan
+        g32 = [g.float() for g in grads]
+        with _metered(plan.meter, g32[0]):
+            out = _scatter_unit(g32, plan)
+        if plan.meter is not None:
+            plan.meter.scatter_bytes += sum(g.numel() * 4 for g in g32)
+        return (None,) + (None,) * len(grads) + tuple(out)
+
+
+def gather_for_use(
+    shards: Sequence[torch.Tensor],
+    anchors: Sequence[torch.Tensor],
+    specs: Sequence[Spec],
+    groups: Mapping[str, object],
+    reduce_axes: Sequence[str],
+    meter: CommMeter | None = None,
+) -> list[torch.Tensor]:
+    """One unit's parameters gathered for use: the full tensors of ``shards``
+    laid out per ``specs`` (``all_gather_params``'s layout), differentiable.
+
+    ``anchors`` are float32 tensors of the shards' shapes that require grad:
+    ``torch.autograd.grad`` over them gives each shard's gradient in float32,
+    the full gradient cast to float32 (so no reduction rounds to a narrower
+    parameter dtype), then reduced as ``reduce_scatter_tree`` reduces it over
+    ``reduce_axes``.  A tensor used twice in one forward (tied embeddings,
+    gathered by two units) gets both gradients summed by autograd.  Every
+    rank must call it for the same units in the same order (the collectives
+    run in the forward and, under recomputation, again in the backward)."""
+    plan = _UnitPlan(tuple(specs), groups, tuple(reduce_axes), meter)
+    return list(_GatherForUse.apply(plan, *[s.detach() for s in shards], *anchors))
 
 
 # ---------------------------------------------------------------------------

@@ -29,10 +29,22 @@ each process runs its own ``R / n`` rank rows into one local carry, then:
   goes back to shards through ``reduce_scatter_tree``, AdamW updates only the
   shards, and clipping's global norm adds one scalar ``all_reduce`` per
   class of sharding;
-* masked mode pays the W slots for its own rows, then ``all_reduce``s.
-
-Per-microbatch gathers (``fsdp=True``) are validated as in the reference and
-refused on a group of more than one rank (``NotImplementedError``).
+* masked mode pays the W slots for its own rows, then ``all_reduce``s;
+* ``fsdp=True`` (masked mode) keeps parameters and AdamW moments sharded
+  per ``sharding.state_specs`` (:func:`shard_train_state`) and gathers per
+  microbatch: the model's unit hook (``transformer.forward``) gathers each
+  unit (the embedding, one block, the final norm and head) just before it
+  runs through ``collectives.gather_for_use``, whose backward
+  reduce-scatters the unit's float32 gradients over ``fsdp_axes`` back to
+  the shards; under ``cfg.remat`` a block's recomputation gathers it again.
+  Every slot's collectives run on every rank, whatever its allocation: the
+  mask weights the gradient at the loss (``grad_outputs``), never skips a
+  slot.  Processes that hold the same rank rows (an ``fsdp_axes`` axis
+  other than the allocation axis) weight theirs by 0 but the first, so the
+  reduce-scatter counts each row once; an allocation axis outside
+  ``fsdp_axes`` takes one ``all_reduce`` of the shard sums a step.  While
+  mode takes ``fsdp="gather"`` across processes instead (per-microbatch
+  FSDP there is ``NotImplementedError``).
 
 Every mode normalizes the summed gradient by the GLOBAL token count, so the
 update depends only on the union of microbatches, not on which rank computed
@@ -41,16 +53,21 @@ which (the paper's eq. 1 allocation-invariance).
 The port's route for the accumulation (the reference sums inline): each
 microbatch's gradients come from ``torch.autograd.grad`` and are added into
 the gradient sum by the ``weighted_accum`` kernel (``kernels.ops``), in
-place, one launch per tensor.  While mode adds ``g.to(gsum.dtype)`` at scale
-1, which equals the reference's ``a + b.astype(a.dtype)``
-(``repro/dist/hetero_step.py:219``) bit for bit; masked mode builds each
+place, one launch per type pair of a tree.  While mode adds
+``g.to(gsum.dtype)`` at scale 1, which equals the reference's
+``a + b.astype(a.dtype)`` (``repro/dist/hetero_step.py:219``) bit for bit;
+masked mode builds each
 slot's rank sum with the rank's 0/1 weight as the scale, read from the device
 (no host sync), then adds the slot to the sum at scale 1, as the reference's
-``tensordot`` over ranks (``:190``) does in another summation order.
+``tensordot`` over ranks (``:190``) does in another summation order.  Under
+``fsdp=True`` on a mesh the mask is already in each row's shard gradients
+(reduced in float32 over the processes' rows), which the slot sums at
+scale 1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -61,9 +78,11 @@ from repro_torch.dist.collectives import (
     CommMeter,
     all_gather_params,
     all_reduce,
+    all_reduce_flat,
     axis_groups,
     axis_sizes,
     broadcast,
+    gather_for_use,
     reduce_scatter_tree,
     ring_allreduce_tree,
     spec_dims,
@@ -109,11 +128,11 @@ class HeteroStepConfig:
     seq_len: int
     mode: str = "masked"  # "while" | "masked"
     alloc_axis: str = "data"  # mesh axis the allocation ranks live on
-    # False: replicated params.  True: params sharded over fsdp_axes with
-    # per-microbatch gathers (masked mode only; refused on a group of more
-    # than one rank).  "gather": params AND optimizer state sharded, one
-    # gather per step outside the per-rank loops (while mode only).  On one
-    # shard both are the identity.
+    # False: replicated params.  True: params AND optimizer state sharded
+    # over fsdp_axes, each unit gathered per microbatch (masked mode across
+    # processes).  "gather": params AND optimizer state sharded, one gather
+    # per step outside the per-rank loops (while mode only).  On one shard
+    # both are the identity.
     fsdp: bool | str = False
     fsdp_axes: tuple[str, ...] = ("data",)
     optimizer: str = "adamw"  # "adamw" | "sgd"
@@ -212,8 +231,13 @@ def _while_accum(model, params, inputs, targets, alloc, cfg, scfg):
         for j in range(min(int(alloc[r]), W)):
             ls, tk, g = _micro_grads(model, params, inputs[r, j], targets[r, j], cfg, scfg)
             # the port's route: acc + 1.0 * g.to(acc.dtype) in float32, in place
-            # (== the reference's inline a + b.astype(a.dtype), hetero_step.py:219)
-            kops.weighted_accum_tree(gsum, [t.to(gdt) for t in g], one, out=gsum)
+            # (== the reference's inline a + b.astype(a.dtype), hetero_step.py:219), one launch
+            # a tree; each gradient is freed as its copy is made, so a microbatch holds its
+            # gradient once in grad_dtype, not twice
+            g = list(g)
+            for i in range(len(g)):
+                g[i] = g[i].to(gdt)
+            kops.weighted_accum_tree(gsum, g, one, out=gsum)
             lsum = lsum + ls
             tsum = tsum + tk
     return gsum, lsum, tsum
@@ -243,6 +267,68 @@ def _masked_grads(model, params, inputs, targets, alloc, cfg, scfg):
         lsum = lsum + slot_l
         tsum = tsum + slot_t
     return gsum, lsum, tsum
+
+
+def _masked_unit_grads(model, anchors, inputs, targets, alloc, weight, cfg, scfg):
+    """Masked mode over sharded parameters: every one of the W slots on every
+    rank, the model's units gathered for use by its unit hook.  The rank's
+    weight ``1[j < alloc[r]]`` (times ``weight``, 0 where another process
+    holds the same rows) is the gradient at the loss, so the reduce-scatters
+    of the backward sum weighted gradients; each row's float32 shard
+    gradients go into the slot, the slot into the sum, at scale 1."""
+    gdt = getattr(torch, scfg.grad_dtype)
+    dev = anchors[0].device
+    R, W = inputs.shape[:2]
+    alloc_t = torch.as_tensor(np.asarray(alloc), dtype=torch.int64).to(dev)
+    mask = (torch.arange(W, device=dev)[None, :] < alloc_t[:, None]).float()  # (R, W) on the device
+    gsum, lsum, tsum = _zero_carry(anchors, gdt)
+    one = torch.ones((1,), dtype=torch.float32, device=dev)
+    for j in range(W):
+        slot = [torch.zeros(a.shape, dtype=torch.float32, device=dev) for a in anchors]
+        slot_l = torch.zeros((), dtype=torch.float32, device=dev)
+        slot_t = torch.zeros((), dtype=torch.float32, device=dev)
+        for r in range(R):
+            ls, tk = _micro_loss_sum(model, inputs[r, j], targets[r, j], cfg, scfg)
+            m = mask[r, j]
+            g = torch.autograd.grad(ls, anchors, grad_outputs=m * weight)
+            kops.weighted_accum_tree(slot, g, one, out=slot)
+            slot_l = slot_l + m * ls.detach()
+            slot_t = slot_t + m * tk.detach()
+        kops.weighted_accum_tree(gsum, [s.to(gdt) for s in slot], one, out=gsum)
+        lsum = lsum + slot_l
+        tsum = tsum + slot_t
+    return gsum, lsum, tsum
+
+
+def _unit_hook(model, params, anchors, specs, groups, reduce_axes, meter):
+    """``model.unit_hook``: the context ``transformer.forward`` enters around
+    each unit (``transformer.unit_parameters``), which gathers the unit's
+    parameters for use and puts the full tensors in place of the shard
+    parameters until it exits."""
+    names = [name for name, _ in model.named_parameters()]
+    slots = []
+    for name in names:
+        owner, _, attr = name.rpartition(".")
+        slots.append((model.get_submodule(owner) if owner else model, attr))
+    units = {unit: [names.index(n) for n in members] for unit, members in transformer.unit_parameters(model).items()}
+
+    @contextlib.contextmanager
+    def hook(unit: str):
+        idx = units[unit]
+        full = gather_for_use([params[i] for i in idx], [anchors[i] for i in idx], [specs[i] for i in idx],
+                              groups, reduce_axes, meter)
+        saved = []
+        for i, f in zip(idx, full):
+            module, attr = slots[i]
+            saved.append((module, attr, module._parameters[attr]))
+            module._parameters[attr] = f
+        try:
+            yield
+        finally:
+            for module, attr, p in reversed(saved):
+                module._parameters[attr] = p
+
+    return hook
 
 
 # ---------------------------------------------------------------------------
@@ -295,18 +381,20 @@ def build_train_step(
     for the trip counts (numpy or a tensor); every process of a mesh passes
     the whole batch and takes its own rank rows.  The state is updated in
     place (parameters, moments) and returned with ``step + 1``; under
-    ``fsdp="gather"`` on a mesh it holds this process's shards
-    (:func:`shard_train_state`).  ``metrics``: ``{"loss", "tokens",
+    ``fsdp="gather"`` or ``fsdp=True`` on a mesh it holds this process's
+    shards (:func:`shard_train_state`, which the caller applies).  ``metrics``: ``{"loss", "tokens",
     "grad_norm", "lr"}`` float32 device scalars; ``loss`` is the global
     token-weighted mean cross-entropy BEFORE the update.  ``step.meter`` (a
-    ``CommMeter``) counts the ring's bytes and the seconds in collectives."""
+    ``CommMeter``) counts the ring's bytes, the collective calls, the bytes
+    gathered and reduced per microbatch, and the seconds in collectives."""
     sizes, groups = _axes(mesh)
     scfg.validate(tuple(sizes))
     n = sizes[scfg.alloc_axis]
-    if n > 1 and scfg.fsdp is True:
+    units = scfg.fsdp is True and max(sizes.values()) > 1
+    if units and scfg.mode == "while":
         raise NotImplementedError(
-            "fsdp=True (per-microbatch gathers placed by GSPMD) has no multi-process form in the port; "
-            "use fsdp='gather' (while mode) or replicated parameters"
+            "fsdp=True across processes is the masked-mode partition in the port (every rank runs every "
+            "slot's gathers); while mode takes fsdp='gather' (one gather a step, outside the loops)"
         )
     group = groups.get(scfg.alloc_axis)
     lr_fn = lr_fn or constant(scfg.lr)
@@ -319,11 +407,17 @@ def build_train_step(
     ring = scfg.collective == "ring"
     meter = CommMeter()
     gather = scfg.mode == "while" and scfg.fsdp == "gather" and max(sizes.values()) > 1
-    if gather:
+    if gather or units:
         skeleton = transformer.Transformer(cfg, device="meta")
         labels = reference_paths(skeleton, cfg)
         pspecs = param_specs(skeleton, sizes, cfg, fsdp=True, fsdp_axes=scfg.fsdp_axes)
         spec_of = dict(zip(labels, pspecs, strict=True))
+    if units:
+        # the backward reduces over the FSDP axes; processes along one of them that is not the
+        # allocation axis hold the same rank rows, and only the first of them weighs its gradients in
+        reduce_axes = tuple(a for a in scfg.fsdp_axes if sizes.get(a, 1) > 1)
+        dup_axes = tuple(a for a in reduce_axes if a != scfg.alloc_axis)
+        weight = 1.0 if all(mesh.get_local_rank(a) == 0 for a in dup_axes) else 0.0
 
     def local_rows(batch, alloc):
         """This process's block of rank rows (the reference's ``P(alloc_axis)``)."""
@@ -373,6 +467,24 @@ def build_train_step(
         meter.seconds += _clock(device) - t0
         return list(gsum.values()), lsum, tsum
 
+    def unit_grads(model, params, x, y, alloc, device):
+        """``fsdp=True``: the masked slots over shards, each unit gathered for
+        its use; the shard sums then ``all_reduce``d over an allocation axis
+        that the backward's reduce-scatters did not cover."""
+        anchors = [torch.zeros((), dtype=torch.float32, device=device).expand(p.shape).requires_grad_()
+                   for p in params]
+        model.unit_hook = _unit_hook(model, params, anchors, pspecs, groups, reduce_axes, meter)
+        try:
+            gsum, lsum, tsum = _masked_unit_grads(model, anchors, x, y, alloc, weight, cfg, scfg)
+        finally:
+            del model.unit_hook
+        t0 = _clock(device)
+        if scfg.alloc_axis not in reduce_axes:
+            gsum = all_reduce_flat(gsum, group, meter)
+        lsum, tsum = all_reduce(lsum, group, meter), all_reduce(tsum, group, meter)
+        meter.seconds += _clock(device) - t0
+        return gsum, lsum, tsum
+
     def step(state, batch):
         alloc = batch["alloc"]
         alloc = alloc.cpu().numpy() if isinstance(alloc, torch.Tensor) else np.asarray(alloc)
@@ -383,6 +495,8 @@ def build_train_step(
         inputs, targets, alloc = local_rows(batch, alloc)
         if gather:
             gsum, lsum, tsum = gathered_grads(model, params, inputs, targets, alloc, device)
+        elif units:
+            gsum, lsum, tsum = unit_grads(model, params, inputs, targets, alloc, device)
         elif scfg.mode == "masked":
             gsum, lsum, tsum = reduce(*_masked_grads(model, params, inputs, targets, alloc, cfg, scfg), device)
         else:
@@ -390,7 +504,7 @@ def build_train_step(
         denom = torch.clamp(tsum, min=1.0)
         # in place where the sum is float32 already (it is ours): g.float() / denom
         grads = [g.div_(denom) if g.dtype == torch.float32 else g.float() / denom for g in gsum]
-        if gather:
+        if gather or units:
             gnorm = _sharded_global_norm(grads, pspecs, groups, meter)
             if scfg.clip_norm > 0.0:
                 scale = torch.clamp(scfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)

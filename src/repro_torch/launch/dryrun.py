@@ -215,9 +215,7 @@ def run_cell(arch: str, shape_name: str, mesh, mesh_name: str, hetero: bool = Fa
             rec["analytic_flops_warn"] = True
             print(f"[WARN] counted/analytic flops {ratio:.2f}x (warn at {cost_warn_ratio:g}x) for "
                   f"{arch} {shape_name} {mesh_name}", flush=True)
-        if plan.kind == "train" and plan.step_refused:
-            rec["collectives_refused"] = plan.step_refused
-        elif plan.kind == "train":
+        if plan.kind == "train":
             inv = step_inventory(plan)
             rec.update(collectives=inv, collective_bytes_per_dev=sum(e["bytes"] for e in inv))
         else:

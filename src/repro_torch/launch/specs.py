@@ -28,9 +28,10 @@ the serving prefill through the flash (and RWKV6) kernels, or one decode
 step on the per-slot cache.  The port shards no activation over ``model``:
 a device runs every head of its rows, with its parameters whole (gathered
 under ``fsdp="gather"``).  ``CellPlan.step_run`` is the cell's train step
-on a mesh of processes (``dist.hetero_step``); the port refuses
-per-microbatch FSDP (``fsdp=True``) across more than one allocation rank,
-and ``CellPlan.step_refused`` then says so.
+on a mesh of processes (``dist.hetero_step``), its state sharded under
+``fsdp="gather"`` and under per-microbatch FSDP (``fsdp=True``, the
+multi-pod cells of an MoE or FSDP model), whose units it gathers per
+microbatch.
 """
 
 from __future__ import annotations
@@ -274,14 +275,6 @@ class CellPlan:
     cache_bytes_per_dev: int = 0
     batch_bytes_per_dev: int = 0
 
-    @property
-    def step_refused(self) -> str | None:
-        """Why the port cannot build this cell's step on a mesh, or None."""
-        if self.scfg is not None and self.scfg.fsdp is True and self.sizes[self.scfg.alloc_axis] > 1:
-            return ("per-microbatch FSDP (fsdp=True) across more than one allocation rank has no "
-                    "multi-process form in the port (dist.hetero_step)")
-        return None
-
     def cut(self, repeats: int | None) -> ModelConfig:
         """The config with its repeating pattern cut to ``repeats`` (tail kept; None: whole)."""
         cfg = self.cfg
@@ -333,13 +326,11 @@ class CellPlan:
         ``seq`` tokens (the collectives carry parameter shapes only)."""
         if self.kind != "train":
             raise ValueError("only a train cell has a step")
-        if self.step_refused:
-            raise NotImplementedError(self.step_refused)
         cfg, scfg = self.cfg, dataclasses.replace(self.scfg, seq_len=seq)
         params = transformer.Transformer(cfg, META).requires_grad_(True)
         state = {"params": params, "opt": adamw_init(list(params.parameters()), self.opt_cfg),
                  "step": torch.zeros((), dtype=torch.int32, device=META)}
-        if scfg.mode == "while" and scfg.fsdp == "gather":
+        if scfg.fsdp in ("gather", True):
             from repro_torch.dist.hetero_step import shard_train_state
 
             pspecs = param_specs(params, self.sizes, cfg, fsdp=True, fsdp_axes=scfg.fsdp_axes)

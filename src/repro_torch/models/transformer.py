@@ -14,12 +14,13 @@ summed into ``forward``'s ``moe_aux``, which ``loss_fn`` adds.
 
 Public entry points:
   init_params / compute_copy            parameters (seeded) and their compute-dtype copy
-  forward / loss_fn                     training
+  forward / loss_fn / unit_parameters   training (and the units a train step may hook)
   init_cache / prefill / decode_step    serving
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import torch
@@ -42,6 +43,7 @@ __all__ = [
     "compute_copy",
     "forward",
     "loss_fn",
+    "unit_parameters",
     "init_cache",
     "prefill",
     "decode_step",
@@ -260,6 +262,35 @@ def _train_layer(layer: Block, h: torch.Tensor, cfg: ModelConfig, attn_impl: str
     return h, zero if aux is None else aux
 
 
+def unit_parameters(params: Transformer) -> dict[str, list[str]]:
+    """The parameters (``named_parameters`` names) each unit of the training
+    forward reads: ``"embed"``, ``"layers.<i>"``, and ``"head"`` (the final
+    norm and the output matrix, which is the embedding again where tied)."""
+    units: dict[str, list[str]] = {}
+    for name, _ in params.named_parameters():
+        top = name.split(".")
+        key = "embed" if top[0] == "embed" else f"layers.{top[1]}" if top[0] == "layers" else "head"
+        units.setdefault(key, []).append(name)
+    if params.cfg.tie_embeddings:
+        units["head"].append("embed")
+    return units
+
+
+def _unit(params: Transformer, name: str):
+    """The context of one unit of the training forward (``"embed"``,
+    ``"layers.<i>"``, ``"head"``): ``params.unit_hook(name)`` where a train
+    step set one (``dist.hetero_step`` gathers the unit's sharded parameters
+    there for the unit's use), else nothing."""
+    hook = getattr(params, "unit_hook", None)
+    return contextlib.nullcontext() if hook is None else hook(name)
+
+
+def _train_unit(params: Transformer, i: int, h: torch.Tensor, cfg: ModelConfig, attn_impl: str):
+    """Layer ``i`` inside its unit's context (so a recomputation enters it again)."""
+    with _unit(params, f"layers.{i}"):
+        return _train_layer(params.layers[i], h, cfg, attn_impl)
+
+
 def forward(
     params: Transformer, inputs: torch.Tensor, cfg: ModelConfig, attn_impl: str = "blocked"
 ) -> tuple[torch.Tensor, dict]:
@@ -275,18 +306,24 @@ def forward(
     the matmul outputs) recomputes everything too: the values are the same.
     RWKV layers run ``rwkv.rwkv_train`` with the ``chunked`` WKV, as the
     reference trains them.  ``moe_aux`` sums ``router_aux_weight·aux_loss +
-    router_z_weight·z_loss`` over the MoE layers (0 without them)."""
-    h = _embed_in(params, inputs, cfg)
+    router_z_weight·z_loss`` over the MoE layers (0 without them).  Each
+    unit (the embedding, a layer, the final norm with the logits) runs in the
+    context of ``params.unit_hook`` where set (:func:`_unit`), a layer's
+    inside its checkpoint region."""
+    with _unit(params, "embed"):
+        h = _embed_in(params, inputs, cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     remat = cfg.remat and cfg.remat_policy != "none"
-    for layer in params.layers:
+    for i in range(len(params.layers)):
         if remat:
-            h, aux = checkpoint(_train_layer, layer, h, cfg, attn_impl, use_reentrant=False)
+            h, aux = checkpoint(_train_unit, params, i, h, cfg, attn_impl, use_reentrant=False)
         else:
-            h, aux = _train_layer(layer, h, cfg, attn_impl)
+            h, aux = _train_unit(params, i, h, cfg, attn_impl)
         aux_total = aux_total + aux
-    h = _norm(h, params.final_norm, cfg)
-    return _logits(params, h, cfg), {"moe_aux": aux_total}
+    with _unit(params, "head"):
+        h = _norm(h, params.final_norm, cfg)
+        logits = _logits(params, h, cfg)
+    return logits, {"moe_aux": aux_total}
 
 
 def loss_fn(

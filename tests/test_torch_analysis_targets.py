@@ -129,10 +129,10 @@ def test_fewer_than_two_ranks_is_never_reported_uniform(n_ranks):
 @pytest.mark.parametrize("mode,fsdp,collective", cli.ALL_COMBOS)
 def test_train_combo_verdict_agrees_with_validate(mode, fsdp, collective, monkeypatch):
     """Every combination ``validate`` admits runs collective-uniform on every
-    rank of the (4, 1) mesh under divergent allocations, but masked +
-    fsdp=True, which the port builds on one rank only and so cannot check;
-    while + fsdp=True is refused as the deadlock class its fixture shows;
-    masked + gather is refused at construction."""
+    rank of the (4, 1) mesh under divergent allocations, masked + fsdp=True
+    too (its per-unit gathers and reduce-scatters run every slot on every
+    rank); while + fsdp=True is refused as the deadlock class its fixture
+    shows; masked + gather is refused at construction."""
     monkeypatch.setattr(cli, "ALL_COMBOS", ((mode, fsdp, collective),))
     findings, meta = cli.analyze_train()
     (m,) = meta.values()
@@ -143,8 +143,9 @@ def test_train_combo_verdict_agrees_with_validate(mode, fsdp, collective, monkey
         assert m["validate"].startswith("rejected") and "deadlock" in m["validate"]
         assert m["verdict"] == "divergent (the deadlock fixture)"
     elif fsdp is True:
-        assert m["validate"] == "legal" and m["verdict"] == "not checked" and m["n_ranks"] == 1
-        assert m["mesh"] == [1, 1] and "one rank" in m["why"] and m["cost"]["flops"] > 0
+        assert m["validate"] == "legal" and m["verdict"] == "uniform" and m["n_ranks"] == 4
+        assert m["mesh"] == [4, 1] and len(set(m["n_collectives"])) == 1 and m["cost"]["flops"] > 0
+        assert {c["op"] for c in m["collectives"]} >= {"all_gather", "reduce_scatter", "all_reduce"}
     else:
         assert m["validate"] == "legal" and m["verdict"] == "uniform"
         assert len(set(m["n_collectives"])) == 1 and m["cost"]["flops"] > 0

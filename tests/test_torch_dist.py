@@ -17,9 +17,10 @@ handed over in its npz checkpoint format.  Checked:
 * ``param_specs``/``state_specs``/``cache_specs`` equal to the reference's,
   dimension for dimension (the stacking dimension left out);
 * the step at 4 ranks (while + psum, while + ring, while + gather, while +
-  gather + ring, masked) against the reference's step on a (4, 1) mesh: loss
-  rtol 1e-5, parameters within 1e-5; allocation invariance; the sharded
-  state at about 1/4;
+  gather + ring, masked, masked + per-microbatch FSDP) against the
+  reference's step on a (4, 1) mesh: loss rtol 1e-5, parameters within
+  1e-5; allocation invariance; the sharded state at about 1/4; while mode
+  with per-microbatch FSDP refused across processes;
 * the 4-process train CLI (``--mode while --fsdp gather`` with a ``fail``
   event) against the reference CLI under 4 host devices (losses 1e-5,
   allocations), and a kill and resume across the group change, exact.
@@ -339,6 +340,7 @@ VARIANTS = {
     "gather": dict(mode="while", fsdp="gather"),
     "gather_ring": dict(mode="while", fsdp="gather", collective="ring"),
     "masked": dict(mode="masked"),
+    "masked_fsdp": dict(mode="masked", fsdp=True),
 }
 
 STEP_REFERENCE = """
@@ -392,12 +394,12 @@ def run(kw, batch):
     scfg = HeteroStepConfig(w_max=W, micro_bs=MB, seq_len=S, **kw)
     state = start()
     full = sum(p.numel() for p in state["params"].parameters())
-    if scfg.fsdp == "gather":
+    if scfg.fsdp in ("gather", True):
         shard_train_state(state, pspecs, mesh)
     local = sum(p.numel() for p in state["params"].parameters()) + sum(t.numel() for t in state["opt"]["mu"])
     step = build_train_step(cfg, scfg, mesh=mesh)
     state, m = step(state, batch)
-    if scfg.fsdp == "gather":
+    if scfg.fsdp in ("gather", True):
         gather_train_state(state, pspecs, mesh)
     return state, float(m["loss"]), local / (2 * full)
 
@@ -425,11 +427,12 @@ for name in ("psum", "gather"):
         got.append((loss, [p.detach().clone() for p in state["params"].parameters()]))
     param_gap = max((a - b).abs().max().item() for a, b in zip(got[0][1], got[1][1]))
     report["invariance_" + name] = {{"loss_gap": abs(got[0][0] - got[1][0]) / abs(got[0][0]), "param_gap": param_gap}}
-try:
-    build_train_step(cfg, HeteroStepConfig(w_max=W, micro_bs=MB, seq_len=S, mode="masked", fsdp=True), mesh=mesh)
-    report["fsdp_true"] = "accepted"
+try:  # per-microbatch FSDP across processes is the masked partition: while mode takes fsdp="gather"
+    build_train_step(cfg, HeteroStepConfig(w_max=W, micro_bs=MB, seq_len=S, mode="while", fsdp=True,
+                                           alloc_axis="data", fsdp_axes=("model",)), mesh=mesh)
+    report["while_fsdp_true"] = "accepted"
 except NotImplementedError as e:
-    report["fsdp_true"] = "refused"
+    report["while_fsdp_true"] = "refused"
 if rank == 0:
     np.savez(f"{{work}}/step_port.npz", **out)
 print(json.dumps(report))
@@ -478,12 +481,12 @@ def test_step_at_4_ranks_matches_the_reference_step(tmp_path):
             assert np.all(diff[tiny] <= 2 * 1e-3), pkey
         assert len({rep[name]["loss"] for rep in reports}) == 1  # every rank reports the global loss
     for rep in reports:
-        for name in ("gather", "gather_ring"):
+        for name in ("gather", "gather_ring", "masked_fsdp"):
             assert 0.2 < rep[name]["state_ratio"] < 0.3, rep[name]  # 1/4 but the replicated norm gains
         assert rep["psum"]["state_ratio"] == 1.0
         for name in ("invariance_psum", "invariance_gather"):
             assert rep[name]["loss_gap"] <= 1e-6 and rep[name]["param_gap"] < TOL, rep[name]
-        assert rep["fsdp_true"] == "refused"
+        assert rep["while_fsdp_true"] == "refused"
 
 
 # ---------------------------------------------------------------------------

@@ -291,6 +291,34 @@ def test_step_inventory_of_a_while_mode_cell():
     assert entry == {"op": "all_reduce", "axis": "data", "count": n_params + 2, "bytes": nbytes}
 
 
+def test_step_inventory_of_a_multi_pod_moe_cell():
+    """olmoe-1b-7b's train_4k on multi_pod_2x16x16 at 2 of its 16 layers:
+    masked allocation over "pod" with per-microbatch FSDP over "data" (the
+    reference's multi-pod MoE partition), under remat.  Counted by hand, per
+    microbatch (the step runs every one of its w_max slots): a block's
+    forward gathers once an axis for its bf16 matrices and once for its
+    float32 router, over "data" and over "model" (each matrix is sharded over
+    both), and its recomputation in the backward again; the embedding and the
+    head (not recomputed) gather once an axis; every unit reduce-scatters its
+    float32 gradients over "data" once, and a block's norm gains and the
+    final norm take one all_reduce over "data".  A step ends with one
+    all_reduce over "pod" of the shard sums (one float32 call), the loss and
+    the tokens."""
+    plan = tspecs.plan_cell("olmoe-1b-7b", "train_4k", _port_mesh("multi_pod_2x16x16"))
+    scfg = plan.scfg
+    assert (scfg.mode, scfg.alloc_axis, scfg.fsdp, scfg.fsdp_axes) == ("masked", "pod", True, ("data",))
+    L, W = 2, scfg.w_max
+    plan = dataclasses.replace(plan, cfg=dataclasses.replace(plan.cfg, n_layers=L))
+    assert plan.cfg.remat
+    inv = {(e["op"], e["axis"]): e["count"] for e in dryrun.step_inventory(plan)}
+    for axis in ("data", "model"):
+        assert inv["all_gather", axis] == W * (2 * 2 * L + 2)
+    assert inv["reduce_scatter", "data"] == W * (L + 2)
+    assert inv["all_reduce", "pod"] == 3
+    assert inv["all_reduce", "data"] >= W * (L + 1)
+    assert ("reduce_scatter", "pod") not in inv and ("reduce_scatter", "model") not in inv
+
+
 def test_dryrun_json_is_byte_identical_and_an_error_cell_exits_nonzero(tmp_path, monkeypatch):
     argv = ["--arch", "smollm-360m", "--mesh", "data8", "--shape", "decode_32k"]
     assert dryrun.main(argv + ["--out", str(tmp_path / "a.json")]) == 0
