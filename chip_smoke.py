@@ -119,7 +119,7 @@ nonzero exit and no result line, if anything is wrong:
     the card.  Then the serve CLI once, with no
     ``--device``, with ``--trace pai_small --trace-out --metrics-out``.
 12. Checkpoint and exact resume (``train_resume``): smollm-360m at full width
-    and depth, seq 512, micro_bs 1, 4 microbatches a step over simulated
+    and 4 of its 32 layers (``CUTS``), seq 512, micro_bs 1, 4 microbatches a step over simulated
     v100, rtx2080ti x2, gtx1080ti, while mode, 2 steps an epoch, faults
     ``slow@1:1*3~2,netdeg@3:2~2``.  U: 4 steps uninterrupted (checkpoints
     every 2 steps, its Perfetto trace and metrics written and parsed); A: 2
@@ -186,6 +186,26 @@ nonzero exit and no result line, if anything is wrong:
     a quarter of the state a rank; equal collective counts on every rank;
     ``weighted_accum`` = the slot adds + the ring's reduce steps; bytes and
     seconds in collectives and each rank's peak logged.
+15d. The reference's multi-pod train partition across processes
+    (``train_split_gloo``): 4 processes sharing the card over gloo as a
+    (2, 2) ``("pod", "data")`` mesh, the allocation on ``pod``
+    (olmoe-1b-7b at 1 of 16 layers, ``SPLIT_LAYERS``, seq 2,048, micro_bs 2, buffers 3 deep,
+    allocation [3, 1]), two configurations from the same weights in the same
+    processes, 2 steps each: (a) masked + ``fsdp=True`` over ``("data",)``,
+    each microbatch split over ``data`` (a process runs 1 row a slot, one
+    whole routing group of 2,048 tokens); (b) while + ``fsdp=True`` over
+    ``("data",)`` (one gather a step, the whole microbatch on both processes
+    of a pod).  Each first step is held to the one-process step of its mode
+    from the same start over the same rows (masked: each 2,048-token row a
+    microbatch of its own, the rows a split process runs; made in the
+    parent once the ranks have run the
+    configuration, kept their first-step shards on the host and freed the
+    card, and shared with them by CUDA IPC): loss and gradient norm
+    within ``MASKED_RTOL``, parameter and mu shards within
+    ``FSDP_STATE_TOL``; the rows a slot each process's model ran, half the
+    state a rank, equal collective counts across the ranks of a pod's
+    configuration, ``weighted_accum`` = the accumulations + the ring's
+    reduce steps; each rank's peak, collective calls and bytes logged.
 
 16. Router (``serve_router``): smollm-360m at full width and 8 of its 32
     layers (``CUTS``) behind ``run_router``, two ``EngineReplica``s of paged engines (2 slots, page
@@ -295,8 +315,8 @@ The phases from 21 on run after every serving and training path and
 before the timing phase, so that protocol_engine's launches are on the
 kernels line.  The flash and paged rows of the kernels line count their launches on every
 serving path (``launches_by_path``); the weighted_accum row counts those of
-every training path (8, 13, 14 summed over the ranks, 15, 15a, 15b, 15c
-summed over the ranks), the ring's reduce steps among them.  A ``phase_seconds`` line follows each phase.
+every training path (8, 13, 14 summed over the ranks, 15, 15a, 15b, 15c and
+15d summed over the ranks), the ring's reduce steps among them.  A ``phase_seconds`` line follows each phase.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -1121,7 +1141,7 @@ def phase_accum_kernels():
             (shape, f32, f32) for shape in ((1000,), (1,), (0,), (960,), (33, 77), (2560, 960), (5, 3, 7), (0, 4))],
         "mixed dtype groups": [((n,), adt, gdt) for n in (4097, 1, 960, 33) for adt in (f32, bf) for gdt in (f32, bf)],
         "larger than one table": [((1 + i % 37,), f32, f32) for i in range(2 * MAX_TENSORS + 100)],
-        "a rank's float32 shard gradients (olmoe-1b-7b, 2 layers, fsdp=True on (4, 1))": [
+        f"a rank's float32 shard gradients (olmoe-1b-7b, {FSDP_GLOO_LAYERS} layer(s), fsdp=True on (4, 1))": [
             (shape, f32, f32) for shape in _fsdp_shard_shapes()],
     }
     for label, spec in trees.items():
@@ -1472,6 +1492,7 @@ RESUME = dict(arch="smollm-360m", micro_bs=1, total_micro=4, n_workers=4,
               steps_per_epoch=2, policy="adaptive", mode="while", faults="slow@1:1*3~2,netdeg@3:2~2", seed=0,
               device="cuda", log_every=1)
 RESUME_SEQ = 512
+RESUME_LAYERS = 4  # smollm-360m's 32 layers cut to 4 at full width for the script's time (CUTS)
 
 
 def _state_leaves(trainer):
@@ -1500,7 +1521,7 @@ def phase_train_resume():
     from repro_torch.runtime.driver import DriverConfig, ElasticTrainer
 
     root = Path(tempfile.mkdtemp(prefix="train_resume_"))
-    model_cfg = dataclasses.replace(get_config(RESUME["arch"]), max_seq=RESUME_SEQ)
+    model_cfg = dataclasses.replace(get_config(RESUME["arch"]), max_seq=RESUME_SEQ, n_layers=RESUME_LAYERS)
 
     def run(name, **kw):
         ops.reset_launch_counts()
@@ -1514,8 +1535,8 @@ def phase_train_resume():
             losses=tr.losses, allocs=[r["alloc"] for r in tr.step_log], fault_log=res["fault_log"],
             step_wall_s=[r["wall_s"] for r in tr.step_log], launches=launches, microbatches=micro,
             io=tr.ckpt_log)
-        check(tr.model_cfg.n_layers == 32 and tr.model_cfg.d_model == 960 and tr.seq_len == RESUME_SEQ,
-              "train_resume: smollm-360m at full width and depth, seq 512")
+        check(tr.model_cfg.n_layers == RESUME_LAYERS and tr.model_cfg.d_model == 960 and tr.seq_len == RESUME_SEQ,
+              f"train_resume: smollm-360m at full width, {RESUME_LAYERS} layers, seq {RESUME_SEQ}")
         check(launches["weighted_accum"] == micro > 0, f"train_resume {name}: one weighted_accum launch a microbatch")
         check(all(np.isfinite(x) for x in tr.losses), f"train_resume {name}: finite losses")
         return tr, res
@@ -1607,9 +1628,23 @@ FSDP_GLOO_LAYERS = 2
 FSDP_GLOO_ALLOC = (3, 2, 2, 1)
 FSDP_GLOO_W = 3
 FSDP_STATE_TOL = 1e-5  # parameters and mu after the first step (tests/test_torch_fsdp.py's tolerance)
+# train_split_gloo: the reference's multi-pod partition on a (2, 2) ("pod", "data") mesh of 4 gloo processes, the
+# allocation on "pod": olmoe-1b-7b at SPLIT_LAYERS of 16 layers, seq 2,048, micro_bs 2 (a process's row of a
+# split microbatch is one whole routing group), buffers 3 deep, allocation [3, 1]; 2 steps of each configuration.
+# At 2 layers the phase took 99 and 134 s of its 90 on an H100, and once a rank of the while configuration ran
+# out of card memory (four ranks of about 18 GB and the parent's tensors on the one card)
+SPLIT_LAYERS = 1
+SPLIT_MESH = ((2, 2), ("pod", "data"))
+SPLIT_SEQ = 2048
+SPLIT_MB = 2
+SPLIT_ALLOC = (3, 1)
+SPLIT_W = 3
+SPLIT_STEPS = 2
+SPLIT_CONFIGS = {"a_masked_split": "masked", "b_while": "while"}  # each with fsdp=True over ("data",)
 # what the script cuts of earlier paths to fit its time, printed at its start
 CUTS = {
     "train, train_masked, train_measured, train_resume, train_dist, train_rwkv": f"seq {TRAIN_SEQ}, not 2048",
+    "train_resume": f"smollm-360m at {RESUME_LAYERS} of its 32 layers, full width",
     "train_dist_gloo": f"smollm-360m at {DIST_GLOO_LAYERS} of its 32 layers, full width",
     "train_moe": f"olmoe-1b-7b at {MOE_TRAIN_LAYERS} of its 16 layers, full width: 3.56B parameters, about 57 GB "
                  "of while-mode state (16 B a parameter); all 16 layers need about 111 GB",
@@ -1617,6 +1652,8 @@ CUTS = {
                     "(Mamba, dense MLP), full width: about 2.1B parameters, 34 GB of state; its second layer "
                     "(MoE, 10.1B parameters) alone needs about 140 GB",
     "train_fsdp_gloo": f"olmoe-1b-7b at {FSDP_GLOO_LAYERS} of its 16 layers, full width: 1.05B parameters",
+    "train_split_gloo": f"olmoe-1b-7b at {SPLIT_LAYERS} of its 16 layers, full width, seq {SPLIT_SEQ}: 0.63B "
+                        "parameters",
     "card-vs-CPU checks of train_moe and train_hybrid": f"1 layer, {CARD_CPU_TOKENS} tokens, full width",
     "serve_router, serve_router_faults": f"the fleets' smollm-360m engines at {ROUTER_LAYERS} of 32 layers, "
                                          "full width",
@@ -2050,6 +2087,7 @@ def _state_gaps(params, mu, ref_params, ref_mu, lr):
     the float32 update fell on a rounding boundary (counted: ``flips``)."""
     worst = {"mu": 0.0, "params": 0.0, "flips": 0, "tiny": 0, "elements": 0, "ok": True}
     for p, m, rp, rm in zip(params, mu, ref_params, ref_mu, strict=True):
+        p, m = p.to(rp.device), m.to(rm.device)  # a rank's kept shards may wait on the host
         dm = (m.float() - rm.float()).abs()
         worst["mu"] = max(worst["mu"], dm.max().item() if dm.numel() else 0.0)
         worst["ok"] &= bool(torch.all(dm <= FSDP_STATE_TOL + FSDP_STATE_TOL * rm.float().abs()))
@@ -2080,8 +2118,8 @@ def _fsdp_rank(rank, world, store, out_dir, ref, ref_metrics):
     import torch.distributed as dist
 
     from repro_torch.dist import HeteroStepConfig, build_train_step, init_train_state
-    from repro_torch.dist.collectives import axis_sizes, spec_dims
-    from repro_torch.dist.hetero_step import shard_train_state
+    from repro_torch.dist.collectives import axis_sizes
+    from repro_torch.dist.hetero_step import _local_shard, shard_train_state
     from repro_torch.dist.sharding import param_specs
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import join_process_group, make_test_mesh
@@ -2114,17 +2152,10 @@ def _fsdp_rank(rank, world, store, out_dir, ref, ref_metrics):
             steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "tokens": float(m["tokens"]),
                           "wall_s": time.perf_counter() - t0, "meter": meter})
             if i == 0:
-                def shard(t, spec):
-                    for dim, axes in spec_dims(spec, t.ndim):
-                        for ax in axes:
-                            t = torch.chunk(t, mesh.size(mesh.mesh_dim_names.index(ax)), dim=dim)[
-                                mesh.get_local_rank(ax)]
-                    return t
-
                 n = len(pspecs)
                 gaps = _state_gaps(list(state["params"].parameters()), state["opt"]["mu"],
-                                   [shard(t, sp) for t, sp in zip(ref[:n], pspecs)],
-                                   [shard(t, sp) for t, sp in zip(ref[n:], pspecs)], scfg.lr)
+                                   [_local_shard(t, sp, mesh) for t, sp in zip(ref[:n], pspecs)],
+                                   [_local_shard(t, sp, mesh) for t, sp in zip(ref[n:], pspecs)], scfg.lr)
         out = {"rank": rank, "device": str(device), "backend": dist.get_backend(), "init_s": init_s,
                "state_ratio": local / (3 * full), "steps": steps, "first_step_vs_one_process": gaps,
                "ref_metrics": ref_metrics, "launches": ops.launch_counts(), "calls": step.meter.calls,
@@ -2138,7 +2169,7 @@ def _fsdp_rank(rank, world, store, out_dir, ref, ref_metrics):
 def phase_train_fsdp_gloo():
     """Masked + fsdp=True on 4 processes on the one card (gloo, host-staged)
     against the one-process masked step from the same start; returns the
-    ranks' weighted_accum launches."""
+    ranks' weighted_accum launches and peak GB."""
     import torch.multiprocessing as tmp
 
     from repro_torch.dist import HeteroStepConfig, build_train_step, init_train_state
@@ -2176,6 +2207,8 @@ def phase_train_fsdp_gloo():
             if p.is_alive():
                 p.kill()
                 p.join()
+            p.close()  # multiprocessing keeps a finished child, and the shared tensors in its arguments
+        procs.clear()
         shutil.rmtree(root, ignore_errors=True)
         del ref
         torch.cuda.ipc_collect()  # the ranks have let go of the shared tensors
@@ -2211,7 +2244,269 @@ def phase_train_fsdp_gloo():
     check(len({row["calls"] for row in rows}) == 1 and rows[0]["calls"] > 0,
           f"train_fsdp_gloo: every rank runs the same number of collectives {[row['calls'] for row in rows]}")
     check(all(np.isfinite(s["loss"]) for rk in ranks for s in rk["steps"]), "train_fsdp_gloo: finite losses")
-    return sum(row["weighted_accum"] for row in rows)
+    return {"launches": sum(row["weighted_accum"] for row in rows),
+            "peak_memory_gb": [row["peak_memory_gb"] for row in rows]}
+
+
+def _split_cfg():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("olmoe-1b-7b"), max_seq=SPLIT_SEQ, n_layers=SPLIT_LAYERS)
+
+
+def _split_scfg(mode, fsdp):
+    from repro_torch.dist import HeteroStepConfig
+
+    return HeteroStepConfig(w_max=SPLIT_W, micro_bs=SPLIT_MB, seq_len=SPLIT_SEQ, mode=mode, alloc_axis="pod",
+                            fsdp=fsdp, fsdp_axes=("data",))
+
+
+def _split_batches():
+    """The SPLIT_STEPS batches of train_split_gloo: (2, 3, 2, 2048), allocation [3, 1]."""
+    from repro_torch.data import HeteroBatcher, SyntheticLM
+
+    cfg, R = _split_cfg(), len(SPLIT_ALLOC)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=SPLIT_SEQ,
+                       n_sequences=SPLIT_STEPS * sum(SPLIT_ALLOC) * SPLIT_MB, seed=0)
+    out = []
+    for b in itertools.islice(HeteroBatcher(data, R, SPLIT_MB, SPLIT_W, seed=0).epoch(0, np.array(SPLIT_ALLOC)),
+                              SPLIT_STEPS):
+        out.append({"inputs": torch.from_numpy(b["inputs"]).cuda().long(),
+                    "targets": torch.from_numpy(b["targets"]).cuda().long(), "alloc": b["alloc"]})
+    return out
+
+
+def _split_rank(rank, world, store, out_dir, inbox, outbox):
+    """One process of train_split_gloo: joins the gloo group on the card as a (2, 2) ("pod", "data") mesh,
+    then for each configuration: a fresh state from seed 0 sharded per param_specs(fsdp=True, ("data",)),
+    SPLIT_STEPS steps through build_train_step, its parameter and mu shards after the first step kept on the
+    host; with the card freed it tells the parent, which then makes the one-process step and sends its
+    parameters and mu (on the card) and metrics; the kept shards are held to the same shards of those.  The
+    rows of each microbatch the model ran are read at the loss."""
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from repro_torch.dist import build_train_step, init_train_state
+    from repro_torch.dist.collectives import axis_sizes
+    from repro_torch.dist.hetero_step import _local_shard, shard_train_state
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import join_process_group, make_test_mesh
+    from repro_torch.models import transformer
+
+    seen = []
+    loss_fn = transformer.loss_fn
+
+    def recording_loss_fn(params, batch, cfg, *args, **kw):
+        seen.append(batch["inputs"].shape[0])
+        return loss_fn(params, batch, cfg, *args, **kw)
+
+    transformer.loss_fn = recording_loss_fn
+    device = join_process_group("cuda", "gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        mesh = make_test_mesh(*SPLIT_MESH, "cuda")
+        cfg = _split_cfg()
+        batches = _split_batches()
+        for name, mode in SPLIT_CONFIGS.items():
+            t0 = time.perf_counter()
+            scfg = _split_scfg(mode, True)
+            state = init_train_state(cfg, scfg, seed=0, device=device)
+            full = sum(p.numel() for p in state["params"].parameters())
+            pspecs = param_specs(state["params"], axis_sizes(mesh), cfg, fsdp=True, fsdp_axes=scfg.fsdp_axes)
+            shard_train_state(state, pspecs, mesh)
+            torch.cuda.empty_cache()
+            local = sum(p.numel() for p in state["params"].parameters()) + sum(
+                t.numel() for key in ("mu", "nu") for t in state["opt"][key])
+            step = build_train_step(cfg, scfg, mesh=mesh)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            seen.clear()
+            steps, kept = [], None
+            for i, batch in enumerate(batches):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                meter = dataclasses.asdict(step.meter)
+                steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                              "tokens": float(m["tokens"]), "wall_s": time.perf_counter() - t0, "meter": meter})
+                if i == 0:  # the first step's shards, kept on the host for the comparison
+                    kept = [t.detach().cpu() for t in [*state["params"].parameters(), *state["opt"]["mu"]]]
+            out = {"rank": rank, "config": name, "mode": scfg.mode, "pod": mesh.get_local_rank("pod"),
+                   "data": mesh.get_local_rank("data"), "init_s": init_s, "state_ratio": local / (3 * full),
+                   "steps": steps, "rows_a_slot": sorted(set(seen)), "microbatches": len(seen),
+                   "launches": ops.launch_counts(), "calls": step.meter.calls, "reduce_steps": step.meter.reduce_steps,
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del state, m, step
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            outbox.put((rank, name, "ran"))
+            ref, out["ref_metrics"] = inbox.get()
+            n = len(pspecs)
+            out["first_step_vs_one_process"] = _state_gaps(
+                kept[:n], kept[n:], [_local_shard(t, sp, mesh) for t, sp in zip(ref[:n], pspecs)],
+                [_local_shard(t, sp, mesh) for t, sp in zip(ref[n:], pspecs)], scfg.lr)
+            del ref, kept  # the parent frees its tensors once every rank is done with them
+            torch.cuda.empty_cache()
+            (Path(out_dir) / f"rank{rank}_{name}.json").write_text(json.dumps(out))
+            outbox.put((rank, name, "compared"))
+        dist.barrier()  # no rank tears its connections down while another still uses them
+    finally:
+        transformer.loss_fn = loss_fn
+        dist.destroy_process_group()
+
+
+def _split_one_process(mode):
+    """The one-process step of ``mode`` (no mesh, no sharding) from seed 0 on the first batch: its parameters
+    and mu after the step (on the card, to be shared with the ranks) and its metrics.  Masked mode takes each
+    2,048-token row as a microbatch of its own (buffers 6 deep, allocation [6, 2]), the rows a split process
+    runs: a bf16 parameter's gradient is rounded once a matmul, so a 4,096-row microbatch's, rounded once,
+    parts from the float32 sum of two rounded 2,048-row halves where the rows cancel (more than 1e-5 on the
+    loss and gradient norm, and in the sign of an update).  While mode runs the microbatches whole, as its
+    ranks do."""
+    from repro_torch.dist import build_train_step, init_train_state
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    # one process holds every rank (the reference's (1, 1) mesh, whose axes are "data" and "model")
+    cfg, scfg = _split_cfg(), dataclasses.replace(_split_scfg(mode, False), alloc_axis="data")
+    batch = _split_batches()[0]
+    if mode == "masked":
+        R, W, mb, S = batch["inputs"].shape
+        scfg = dataclasses.replace(scfg, w_max=W * mb, micro_bs=1)
+        batch = {key: batch[key].reshape(R, W * mb, 1, S) for key in ("inputs", "targets")} | {
+            "alloc": np.asarray(batch["alloc"]) * mb}
+    state = init_train_state(cfg, scfg, seed=0, device="cuda")
+    ops.reset_launch_counts()
+    state, m = build_train_step(cfg, scfg)(state, batch)
+    torch.cuda.synchronize()
+    one = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "tokens": float(m["tokens"]),
+           "seconds": time.perf_counter() - t0, "launches": ops.launch_counts()["weighted_accum"],
+           "micro_bs": scfg.micro_bs, "w_max": scfg.w_max}
+    ref = [p.data for p in state["params"].parameters()] + list(state["opt"]["mu"])
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    del state, m
+    torch.cuda.empty_cache()
+    return ref, one, n_params
+
+
+def phase_train_split_gloo(fsdp_peaks):
+    """The multi-pod partition on 4 processes on the one card (gloo, host-staged) as a (2, 2) ("pod", "data")
+    mesh: (a) masked + fsdp=True with each microbatch split over "data", (b) while + fsdp=True, each against
+    the one-process step of its mode from the same start (``fsdp_peaks``: train_fsdp_gloo's ranks' peak GB,
+    logged beside these); returns the ranks' weighted_accum launches."""
+    import gc
+    import queue
+
+    import torch.multiprocessing as tmp
+
+    gc.collect()  # tensors of earlier phases held only by reference cycles go before the ranks need the card
+    torch.cuda.empty_cache()
+    parent_gb = {"allocated": torch.cuda.memory_allocated() / 1e9, "reserved": torch.cuda.memory_reserved() / 1e9}
+    root = Path(tempfile.mkdtemp(prefix="train_split_gloo_"))
+    ctx = tmp.get_context("spawn")
+    inboxes, outbox = [ctx.Queue() for _ in range(DIST_RANKS)], ctx.Queue()
+    procs = [ctx.Process(target=_split_rank, args=(r, DIST_RANKS, str(root / "store"), str(root), inboxes[r], outbox))
+             for r in range(DIST_RANKS)]
+    t0 = time.perf_counter()
+    ones, n_params = {}, None
+
+    def wait_for(name, what):
+        got = 0
+        while got < DIST_RANKS:
+            try:
+                got += outbox.get(timeout=10)[1:] == (name, what)
+            except queue.Empty:
+                check(all(p.is_alive() for p in procs),
+                      f"train_split_gloo {name}: a rank ended early {[p.exitcode for p in procs]}")
+
+    try:
+        # four ranks of 15 to 17 GB each share the card: expandable segments keep their caches from
+        # fragmenting past it (set for the ranks alone, whose allocators read it when they start)
+        saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            for p in procs:
+                p.start()
+        finally:
+            if saved is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+        for name, mode in SPLIT_CONFIGS.items():
+            wait_for(name, "ran")  # the ranks have run their steps and freed the card
+            ref, ones[name], n_params = _split_one_process(mode)
+            for box in inboxes:
+                box.put((ref, ones[name]))
+            wait_for(name, "compared")
+            del ref
+            torch.cuda.ipc_collect()  # the ranks have let go of the shared tensors
+            torch.cuda.empty_cache()
+        for p in procs:
+            p.join(timeout=300)
+        codes = [p.exitcode for p in procs]
+        wall = time.perf_counter() - t0
+        check(codes == [0] * DIST_RANKS, f"train_split_gloo: every rank exits 0 {codes}")
+        ranks = {name: [json.loads((root / f"rank{r}_{name}.json").read_text()) for r in range(DIST_RANKS)]
+                 for name in SPLIT_CONFIGS}
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+            p.close()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+    total = 0
+    for name, mode in SPLIT_CONFIGS.items():
+        one, rows = ones[name], []
+        for rk in ranks[name]:
+            first = rk["steps"][0]
+            # the accumulations: one a microbatch (while: each of the rank row's allocated microbatches), and
+            # in masked mode one a slot more (the slot into the sum)
+            accums = rk["microbatches"] + (len(rk["steps"]) * SPLIT_W if mode == "masked" else 0)
+            rows.append({"rank": rk["rank"], "pod": rk["pod"], "data": rk["data"], "rows_a_slot": rk["rows_a_slot"],
+                         "microbatches": rk["microbatches"],
+                         "loss_rel_gap": abs(first["loss"] - one["loss"]) / abs(one["loss"]),
+                         "grad_norm_rel_gap": abs(first["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"]),
+                         "state_vs_one_process": rk["first_step_vs_one_process"], "state_ratio": rk["state_ratio"],
+                         "calls": rk["calls"], "weighted_accum": rk["launches"]["weighted_accum"],
+                         "accumulations": accums, "ring_reduce_steps": rk["reduce_steps"],
+                         "collective_s_host_staged": rk["steps"][-1]["meter"]["seconds"],
+                         "gather_bytes": rk["steps"][-1]["meter"]["gather_bytes"],
+                         "scatter_bytes": rk["steps"][-1]["meter"]["scatter_bytes"],
+                         "ring_bytes": rk["steps"][-1]["meter"]["ring_bytes"],
+                         "step_wall_s": [s["wall_s"] for s in rk["steps"]], "init_s": rk["init_s"],
+                         "peak_memory_gb": rk["peak_memory_gb"]})
+        log(phase="train_split_gloo", config=name, mode=mode, fsdp=True, fsdp_axes=["data"], alloc_axis="pod",
+            mesh=SPLIT_MESH, label="host-staged gloo, 4 processes on one card: no interconnect figure",
+            arch="olmoe-1b-7b", layers=SPLIT_LAYERS, params=n_params, seq=SPLIT_SEQ, micro_bs=SPLIT_MB,
+            alloc=SPLIT_ALLOC, w_max=SPLIT_W, steps=SPLIT_STEPS, losses=[s["loss"] for s in ranks[name][0]["steps"]],
+            one_process=one, per_rank=rows, rtol=MASKED_RTOL, state_tol=FSDP_STATE_TOL, nvidia_smi=SMI)
+        want_rows = [SPLIT_MB // SPLIT_MESH[0][1]] if mode == "masked" else [SPLIT_MB]
+        for row in rows:
+            check(row["rows_a_slot"] == want_rows, f"train_split_gloo {name}: rows a slot {want_rows} {row}")
+            check(max(row["loss_rel_gap"], row["grad_norm_rel_gap"]) <= MASKED_RTOL,
+                  f"train_split_gloo {name}: the first step's loss and gradient norm equal one process's {row}")
+            check(row["state_vs_one_process"]["ok"],
+                  f"train_split_gloo {name}: parameters and mu equal one process's {row}")
+            check(0.45 < row["state_ratio"] < 0.55, f"train_split_gloo {name}: about half of the state a rank {row}")
+            check(row["weighted_accum"] == row["accumulations"] + row["ring_reduce_steps"],
+                  f"train_split_gloo {name}: weighted_accum = the accumulations + the ring's reduce steps {row}")
+        # while mode's pods run their own trip counts, but every collective lies outside the loops
+        check(len({row["calls"] for row in rows}) == 1 and rows[0]["calls"] > 0,
+              f"train_split_gloo {name}: every rank runs the same number of collectives {[r['calls'] for r in rows]}")
+        check(all(np.isfinite(s["loss"]) for rk in ranks[name] for s in rk["steps"]),
+              f"train_split_gloo {name}: finite losses")
+        total += sum(row["weighted_accum"] for row in rows)
+    log(phase="train_split_gloo_summary", wall_s=wall, train_fsdp_gloo_peak_memory_gb=fsdp_peaks, parent_gb=parent_gb,
+        peak_memory_gb={name: [rk["peak_memory_gb"] for rk in ranks[name]] for name in SPLIT_CONFIGS},
+        nvidia_smi=SMI)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -3498,6 +3793,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fsdp_gloo = timed("train_fsdp_gloo", phase_train_fsdp_gloo)
     torch.cuda.empty_cache()
+    split_gloo = timed("train_split_gloo", phase_train_split_gloo, fsdp_gloo["peak_memory_gb"])
+    torch.cuda.empty_cache()
     timed("protocol", phase_protocol)
     params = init_params(cfg, seed=0, device="cuda")
     paged_launches["protocol_engine"] = timed("protocol_engine", phase_protocol_engine, cfg, params)
@@ -3513,7 +3810,8 @@ def main() -> int:
     timed("analysis", phase_analysis)
     accum_counts["by_path"] = {"train": accum_counts["launches"], "train_dist_nccl": dist_nccl,
                                "train_dist_gloo": dist_gloo["launches"], "train_rwkv": rwkv_train,
-                               "train_moe": moe_train, "train_hybrid": hybrid_train, "train_fsdp_gloo": fsdp_gloo}
+                               "train_moe": moe_train, "train_hybrid": hybrid_train,
+                               "train_fsdp_gloo": fsdp_gloo["launches"], "train_split_gloo": split_gloo}
     accum_counts["ring_launches"] = dist_gloo["ring_launches"]
 
     rows = timed("timing", phase_timing, main_err,

@@ -262,12 +262,18 @@ def ring_reduce_scatter(
         return x
     if x.shape[dim] % n:
         raise _divisibility_error(x, dim, n, label, "ring length")
-    idx = dist.get_rank(group)
     ch = torch.stack(torch.chunk(x, n, dim=dim))  # (n, ..., chunk, ...), each row contiguous
+    return _ring_reduce_scatter_(ch, group, meter).clone()
+
+
+def _ring_reduce_scatter_(ch: torch.Tensor, group, meter: CommMeter | None) -> torch.Tensor:
+    """:func:`ring_reduce_scatter`'s schedule in place over ``ch``, whose row
+    *r* is chunk *r*; returns this rank's row (a view of ``ch``)."""
+    n, idx = _size(group), dist.get_rank(group)
     for k in range(n - 1):
         recv = _exchange(ch[(idx - k - 1) % n], group, meter)
         _add_(ch[(idx - k - 2) % n], recv, meter)
-    return ch[idx].clone()
+    return ch[idx]
 
 
 # ---------------------------------------------------------------------------
@@ -457,10 +463,13 @@ def _gather_unit(shards: list[torch.Tensor], plan: _UnitPlan) -> list[torch.Tens
 def _scatter_unit(grads: list[torch.Tensor], plan: _UnitPlan) -> list[torch.Tensor]:
     """``reduce_scatter_tree`` over a unit's full gradients: each sharded dim
     cut over its axes major first, by a reduce-scatter over a reduce axis
-    (the ring where staged) and by taking this rank's chunk over another,
-    every step over one axis packed flat into one collective; then one
-    ``all_reduce`` a reduce axis over the tensors that axis shards no dim of."""
-    gs = list(grads)
+    (the ring where staged, in place in the packed buffer) and by taking
+    this rank's chunk over another, every step over one axis packed flat
+    into one collective; then one ``all_reduce`` a reduce axis over the
+    tensors that axis shards no dim of.  Consumes ``grads`` (the list is
+    reused, and each full gradient let go once it is packed), so a unit's
+    full gradients and their packed copy are not all held at once."""
+    gs = grads
     chains = [[[(dim, ax) for ax in axes] for dim, axes in spec_dims(s, g.ndim)]
               for g, s in zip(gs, plan.specs, strict=True)]
     rest = [list(plan.reduce_axes) for _ in gs]
@@ -471,7 +480,7 @@ def _scatter_unit(grads: list[torch.Tensor], plan: _UnitPlan) -> list[torch.Tens
             for i, dim in picked:
                 gs[i] = torch.chunk(gs[i], n, dim=dim)[dist.get_rank(group) if n > 1 else 0]
             continue
-        rows = []
+        rows, shapes = [], {}
         for i, dim in picked:
             g = gs[i]
             rest[i].remove(ax)
@@ -479,16 +488,20 @@ def _scatter_unit(grads: list[torch.Tensor], plan: _UnitPlan) -> list[torch.Tens
                 raise _divisibility_error(g, dim, n, f"unit tensor {i}", "group size")
             split = g.reshape(*g.shape[:dim], n, g.shape[dim] // n, *g.shape[dim + 1:]).movedim(dim, 0)
             rows.append(split.reshape(n, -1))
+            shapes[i], gs[i] = g.shape, None  # freed here where its row is a copy
+            del g, split
         flat = torch.cat(rows, dim=1).reshape(-1)  # chunk r: what rank r of the group keeps
+        del rows
         if _staged(flat, group):  # the adds stay on the card
-            out = ring_reduce_scatter(flat, group, 0, meter=plan.meter)
+            out = _ring_reduce_scatter_(flat.view(n, -1), group, plan.meter).clone()
         else:
             out = _reduce_scatter(flat, group, 0, "", plan.meter)
+        del flat
         off = 0
         for i, dim in picked:
-            g = gs[i]
-            m = g.numel() // n
-            gs[i] = out[off:off + m].view(*g.shape[:dim], g.shape[dim] // n, *g.shape[dim + 1:])
+            shape = shapes[i]
+            m = shape.numel() // n
+            gs[i] = out[off:off + m].view(*shape[:dim], shape[dim] // n, *shape[dim + 1:])
             off += m
     for ax in plan.reduce_axes:  # the axes that shard none of a tensor's dims: summed whole
         idx = [i for i, r in enumerate(rest) if ax in r]
@@ -539,11 +552,10 @@ class _GatherForUse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         plan = ctx.plan
-        g32 = [g.float() for g in grads]
-        with _metered(plan.meter, g32[0]):
-            out = _scatter_unit(g32, plan)
+        with _metered(plan.meter, grads[0]):
+            out = _scatter_unit([g.float() for g in grads], plan)
         if plan.meter is not None:
-            plan.meter.scatter_bytes += sum(g.numel() * 4 for g in g32)
+            plan.meter.scatter_bytes += sum(g.numel() * 4 for g in grads)
         return (None,) + (None,) * len(grads) + tuple(out)
 
 

@@ -39,12 +39,33 @@ each process runs its own ``R / n`` rank rows into one local carry, then:
   the shards; under ``cfg.remat`` a block's recomputation gathers it again.
   Every slot's collectives run on every rank, whatever its allocation: the
   mask weights the gradient at the loss (``grad_outputs``), never skips a
-  slot.  Processes that hold the same rank rows (an ``fsdp_axes`` axis
-  other than the allocation axis) weight theirs by 0 but the first, so the
-  reduce-scatter counts each row once; an allocation axis outside
-  ``fsdp_axes`` takes one ``all_reduce`` of the shard sums a step.  While
-  mode takes ``fsdp="gather"`` across processes instead (per-microbatch
-  FSDP there is ``NotImplementedError``).
+  slot.  Processes that hold the same rows (an ``fsdp_axes`` axis other
+  than the allocation axis, and not split over) weight theirs by 0 but the
+  first, so the reduce-scatter counts each row once; an allocation axis
+  outside ``fsdp_axes`` takes one ``all_reduce`` of the shard sums a step;
+* masked mode splits each microbatch over the mesh's ``"data"`` axis where
+  it is not the allocation axis (:func:`data_split`, the reference's batch
+  spec ``P("pod", None, "data", None)``, which GSPMD splits): each process
+  runs its contiguous ``micro_bs / data`` rows of every slot, weighed by 1,
+  and the sums are reduced over ``"data"`` too (by the backward's
+  reduce-scatter where ``fsdp=True`` shards over it, else one packed
+  ``all_reduce_flat``).  A config with MoE layers splits only where each
+  process's tokens are whole routing groups of ``min(MOE_GROUP, micro_bs *
+  seq_len)`` (a batch of another sequence length than ``seq_len`` is
+  refused where the step splits): the load-balance term is a mean over groups and the z-loss a
+  mean over tokens, so whole groups give the same loss and gradient sums;
+  otherwise every process runs the whole microbatch and all but the first
+  weigh it by 0 (or, unsharded, reduce over the allocation axis alone);
+* while mode with ``fsdp=True`` (the allocation axis outside
+  ``fsdp_axes``; inside it ``validate`` refuses) takes the reference's
+  fully manual body, whose parameters enter whole: one gather of the shards
+  a step before the loops, the loops over whole parameters, the float32
+  gradient sum reduced over the allocation axis and cut back to this
+  process's shards by ``reduce_scatter_tree``, as ``fsdp="gather"`` does
+  (over an FSDP axis that is not reduced it takes this process's chunk of
+  the sum, which the processes along it computed alike).  While mode never splits a microbatch: the reference's
+  body takes the batch as ``P(alloc_axis)``, so processes along another
+  axis compute the same sums.
 
 Every mode normalizes the summed gradient by the GLOBAL token count, so the
 update depends only on the union of microbatches, not on which rank computed
@@ -92,6 +113,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import reference_ndims, reference_paths
+from repro_torch.models.moe import MOE_GROUP
 from repro_torch.optim import (
     AdamWConfig,
     SGDConfig,
@@ -108,6 +130,7 @@ __all__ = [
     "HeteroStepConfig",
     "init_train_state",
     "build_train_step",
+    "data_split",
     "broadcast_train_state",
     "gather_train_state",
     "shard_train_state",
@@ -117,6 +140,7 @@ __all__ = [
 # the axes of one process holding every rank (the reference's driver on one
 # device builds ``make_test_mesh((1, 1))`` with these names)
 LOCAL_AXES = ("data", "model")
+SPLIT_AXIS = "data"  # the axis masked mode splits a microbatch's rows over, beside the allocation axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,10 +153,11 @@ class HeteroStepConfig:
     mode: str = "masked"  # "while" | "masked"
     alloc_axis: str = "data"  # mesh axis the allocation ranks live on
     # False: replicated params.  True: params AND optimizer state sharded
-    # over fsdp_axes, each unit gathered per microbatch (masked mode across
-    # processes).  "gather": params AND optimizer state sharded, one gather
-    # per step outside the per-rank loops (while mode only).  On one shard
-    # both are the identity.
+    # over fsdp_axes, each unit gathered per microbatch in masked mode, the
+    # whole tree once a step in while mode (off the allocation axis).
+    # "gather": params AND optimizer state sharded, one gather per step
+    # outside the per-rank loops (while mode only).  On one shard both are
+    # the identity.
     fsdp: bool | str = False
     fsdp_axes: tuple[str, ...] = ("data",)
     optimizer: str = "adamw"  # "adamw" | "sgd"
@@ -178,6 +203,26 @@ class HeteroStepConfig:
                 "mode='masked', or move FSDP off the allocation axis."
             )
         return self
+
+
+def data_split(cfg: ModelConfig, scfg: HeteroStepConfig, sizes: dict) -> int:
+    """How many ways the step splits each microbatch's rows: ``sizes["data"]``
+    in masked mode where ``"data"`` is not the allocation axis and divides
+    ``micro_bs`` (the launch plan's batch spec), else 1.  A config with MoE
+    layers splits only where each process's ``micro_bs / data * seq_len``
+    tokens are a whole number of routing groups of ``min(2048, micro_bs *
+    seq_len)`` tokens; then its groups are the whole microbatch's, and the
+    auxiliary losses (a mean over groups, a mean over tokens, folded in per
+    token) sum to the same.  While mode never splits (the reference's
+    manual body takes the batch over the allocation axis alone)."""
+    d = sizes.get(SPLIT_AXIS, 1)
+    if scfg.mode != "masked" or scfg.alloc_axis == SPLIT_AXIS or d == 1 or scfg.micro_bs % d:
+        return 1
+    if any(spec.moe for spec in cfg.layer_specs()):
+        group = min(MOE_GROUP, scfg.micro_bs * scfg.seq_len)
+        if (scfg.micro_bs // d * scfg.seq_len) % group:
+            return 1
+    return d
 
 
 def _micro_loss_sum(params, inputs, targets, cfg: ModelConfig, scfg: HeteroStepConfig):
@@ -233,11 +278,12 @@ def _while_accum(model, params, inputs, targets, alloc, cfg, scfg):
             # the port's route: acc + 1.0 * g.to(acc.dtype) in float32, in place
             # (== the reference's inline a + b.astype(a.dtype), hetero_step.py:219), one launch
             # a tree; each gradient is freed as its copy is made, so a microbatch holds its
-            # gradient once in grad_dtype, not twice
+            # gradient once in grad_dtype, not twice, and none while the next one runs
             g = list(g)
             for i in range(len(g)):
                 g[i] = g[i].to(gdt)
             kops.weighted_accum_tree(gsum, g, one, out=gsum)
+            del g
             lsum = lsum + ls
             tsum = tsum + tk
     return gsum, lsum, tsum
@@ -261,6 +307,7 @@ def _masked_grads(model, params, inputs, targets, alloc, cfg, scfg):
             m = mask[r, j : j + 1]  # the rank's weight for this slot, read by the kernel on the device
             # the port's route for the tensordot of hetero_step.py:190: slot += m_r * g_r in float32
             kops.weighted_accum_tree(slot, g, m, out=slot)
+            del g  # not held while the next rank's microbatch runs
             slot_l = slot_l + m[0] * ls
             slot_t = slot_t + m[0] * tk
         kops.weighted_accum_tree(gsum, [s.to(gdt) for s in slot], one, out=gsum)
@@ -292,6 +339,7 @@ def _masked_unit_grads(model, anchors, inputs, targets, alloc, weight, cfg, scfg
             m = mask[r, j]
             g = torch.autograd.grad(ls, anchors, grad_outputs=m * weight)
             kops.weighted_accum_tree(slot, g, one, out=slot)
+            del g  # not held while the next row runs
             slot_l = slot_l + m * ls.detach()
             slot_t = slot_t + m * tk.detach()
         kops.weighted_accum_tree(gsum, [s.to(gdt) for s in slot], one, out=gsum)
@@ -379,8 +427,9 @@ def build_train_step(
     ``batch``: ``{"inputs": (R, W, mb, S), "targets": ..., "alloc": (R,)}``,
     tensors on the parameters' device except ``alloc``, which the host reads
     for the trip counts (numpy or a tensor); every process of a mesh passes
-    the whole batch and takes its own rank rows.  The state is updated in
-    place (parameters, moments) and returned with ``step + 1``; under
+    the whole batch and takes its own rank rows (and, where :func:`data_split`
+    splits, its rows of each microbatch).  The state is updated in place
+    (parameters, moments) and returned with ``step + 1``; under
     ``fsdp="gather"`` or ``fsdp=True`` on a mesh it holds this process's
     shards (:func:`shard_train_state`, which the caller applies).  ``metrics``: ``{"loss", "tokens",
     "grad_norm", "lr"}`` float32 device scalars; ``loss`` is the global
@@ -390,12 +439,10 @@ def build_train_step(
     sizes, groups = _axes(mesh)
     scfg.validate(tuple(sizes))
     n = sizes[scfg.alloc_axis]
-    units = scfg.fsdp is True and max(sizes.values()) > 1
-    if units and scfg.mode == "while":
-        raise NotImplementedError(
-            "fsdp=True across processes is the masked-mode partition in the port (every rank runs every "
-            "slot's gathers); while mode takes fsdp='gather' (one gather a step, outside the loops)"
-        )
+    sharded = scfg.fsdp in (True, "gather") and max(sizes.values()) > 1
+    gather = sharded and scfg.mode == "while"  # one gather a step (fsdp="gather", or True off the alloc axis)
+    units = sharded and scfg.mode == "masked"  # each unit gathered for its use
+    split = data_split(cfg, scfg, sizes)
     group = groups.get(scfg.alloc_axis)
     lr_fn = lr_fn or constant(scfg.lr)
     if scfg.optimizer == "adamw":
@@ -406,48 +453,70 @@ def build_train_step(
         opt_update = sgd_update
     ring = scfg.collective == "ring"
     meter = CommMeter()
-    gather = scfg.mode == "while" and scfg.fsdp == "gather" and max(sizes.values()) > 1
-    if gather or units:
+    if sharded:
         skeleton = transformer.Transformer(cfg, device="meta")
         labels = reference_paths(skeleton, cfg)
         pspecs = param_specs(skeleton, sizes, cfg, fsdp=True, fsdp_axes=scfg.fsdp_axes)
         spec_of = dict(zip(labels, pspecs, strict=True))
     if units:
-        # the backward reduces over the FSDP axes; processes along one of them that is not the
-        # allocation axis hold the same rank rows, and only the first of them weighs its gradients in
+        # the backward reduces over the FSDP axes; processes along one of them that is neither the
+        # allocation axis nor split over hold the same rows, and only the first of them weighs its
+        # gradients in
         reduce_axes = tuple(a for a in scfg.fsdp_axes if sizes.get(a, 1) > 1)
-        dup_axes = tuple(a for a in reduce_axes if a != scfg.alloc_axis)
+        dup_axes = tuple(a for a in reduce_axes if a != scfg.alloc_axis and not (split > 1 and a == SPLIT_AXIS))
         weight = 1.0 if all(mesh.get_local_rank(a) == 0 for a in dup_axes) else 0.0
 
     def local_rows(batch, alloc):
-        """This process's block of rank rows (the reference's ``P(alloc_axis)``)."""
+        """This process's block of rank rows (the reference's ``P(alloc_axis)``),
+        and of each microbatch its contiguous ``1 / split`` of the rows."""
         x, y = batch["inputs"], batch["targets"]
-        if n == 1:
-            return x, y, alloc
-        if x.shape[0] % n:
-            raise ValueError(
-                f"while-mode batch has R={x.shape[0]} rank rows, not divisible by "
-                f"mesh axis {scfg.alloc_axis!r} of size {n}"
-            )
-        r, i = x.shape[0] // n, mesh.get_local_rank(scfg.alloc_axis)
-        return x[i * r:(i + 1) * r], y[i * r:(i + 1) * r], alloc[i * r:(i + 1) * r]
+        if n > 1:
+            if x.shape[0] % n:
+                raise ValueError(
+                    f"while-mode batch has R={x.shape[0]} rank rows, not divisible by "
+                    f"mesh axis {scfg.alloc_axis!r} of size {n}"
+                )
+            r, i = x.shape[0] // n, mesh.get_local_rank(scfg.alloc_axis)
+            x, y, alloc = x[i * r:(i + 1) * r], y[i * r:(i + 1) * r], alloc[i * r:(i + 1) * r]
+        if split > 1:
+            # data_split's MoE rule counted tokens at seq_len; a meta batch (the launch plan's trace of the
+            # collectives) computes no loss, so its sequences may be cut
+            if x.shape[-1] != scfg.seq_len and x.device.type != "meta":
+                raise ValueError(f"batch of sequence length {x.shape[-1]}, not the step's seq_len "
+                                 f"{scfg.seq_len}, where the step splits its microbatches")
+            if x.shape[2] % split:
+                raise ValueError(f"microbatch of {x.shape[2]} rows, not divisible by mesh axis "
+                                 f"{SPLIT_AXIS!r} of size {split}")
+            b, k = x.shape[2] // split, mesh.get_local_rank(SPLIT_AXIS)
+            x, y = x[:, :, k * b:(k + 1) * b], y[:, :, k * b:(k + 1) * b]
+        return x, y, alloc
+
+    def reduce_split(gsum, lsum, tsum):
+        """The sums over the split axis, the tensors of one dtype packed into one call."""
+        if split == 1:
+            return gsum, lsum, tsum
+        *gsum, lsum, tsum = all_reduce_flat([*gsum, lsum, tsum], groups[SPLIT_AXIS], meter)
+        return gsum, lsum, tsum
 
     def reduce(gsum, lsum, tsum, device):
         """The cross-rank reduction of the local carry: the paper's plug-in point."""
-        if n == 1:
+        if n == 1 and split == 1:
             return gsum, lsum, tsum
         t0 = _clock(device)
-        if ring and scfg.mode == "while":
-            gsum = ring_allreduce_tree(gsum, group, meter)
-        else:
-            gsum = [all_reduce(g, group, meter) for g in gsum]
-        lsum, tsum = all_reduce(lsum, group, meter), all_reduce(tsum, group, meter)
+        if n > 1:
+            if ring and scfg.mode == "while":
+                gsum = ring_allreduce_tree(gsum, group, meter)
+            else:
+                gsum = [all_reduce(g, group, meter) for g in gsum]
+            lsum, tsum = all_reduce(lsum, group, meter), all_reduce(tsum, group, meter)
+        gsum, lsum, tsum = reduce_split(gsum, lsum, tsum)
         meter.seconds += _clock(device) - t0
         return gsum, lsum, tsum
 
     def gathered_grads(model, params, x, y, alloc, device):
-        """``fsdp="gather"``: one gather, the local loops over full parameters,
-        the gradient sum reduce-scattered back to shards."""
+        """While mode over shards: one gather, the local loops over full
+        parameters, the gradient sum reduced over the allocation axis and
+        scattered back to this process's shards."""
         t0 = _clock(device)
         shards = [p.data for p in params]
         full = all_gather_params(dict(zip(labels, shards)), spec_of, groups, use_ring=ring, meter=meter)
@@ -469,8 +538,9 @@ def build_train_step(
 
     def unit_grads(model, params, x, y, alloc, device):
         """``fsdp=True``: the masked slots over shards, each unit gathered for
-        its use; the shard sums then ``all_reduce``d over an allocation axis
-        that the backward's reduce-scatters did not cover."""
+        its use; the shard sums then ``all_reduce``d over the allocation axis
+        and the split axis where the backward's reduce-scatters did not
+        cover them."""
         anchors = [torch.zeros((), dtype=torch.float32, device=device).expand(p.shape).requires_grad_()
                    for p in params]
         model.unit_hook = _unit_hook(model, params, anchors, pspecs, groups, reduce_axes, meter)
@@ -482,6 +552,10 @@ def build_train_step(
         if scfg.alloc_axis not in reduce_axes:
             gsum = all_reduce_flat(gsum, group, meter)
         lsum, tsum = all_reduce(lsum, group, meter), all_reduce(tsum, group, meter)
+        if split > 1:
+            if SPLIT_AXIS not in reduce_axes:
+                gsum = all_reduce_flat(gsum, groups[SPLIT_AXIS], meter)
+            lsum, tsum = all_reduce_flat([lsum, tsum], groups[SPLIT_AXIS], meter)
         meter.seconds += _clock(device) - t0
         return gsum, lsum, tsum
 
@@ -504,7 +578,7 @@ def build_train_step(
         denom = torch.clamp(tsum, min=1.0)
         # in place where the sum is float32 already (it is ours): g.float() / denom
         grads = [g.div_(denom) if g.dtype == torch.float32 else g.float() / denom for g in gsum]
-        if gather or units:
+        if sharded:
             gnorm = _sharded_global_norm(grads, pspecs, groups, meter)
             if scfg.clip_norm > 0.0:
                 scale = torch.clamp(scfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -543,18 +617,21 @@ def _set_per_param(state: dict, tensors: list[torch.Tensor]) -> None:
             state["opt"][key] = [next(it) for _ in val]
 
 
+def _local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This process's shard of ``t`` under ``spec``, a view: a spec entry of
+    several axes cuts major axis first, as ``all_gather_params`` rebuilds it."""
+    for dim, axes in spec_dims(spec, t.ndim):
+        for ax in axes:
+            t = torch.chunk(t, mesh.size(mesh.mesh_dim_names.index(ax)), dim=dim)[mesh.get_local_rank(ax)]
+    return t
+
+
 def shard_train_state(state: dict, pspecs: list[tuple], mesh) -> None:
     """In place: every parameter and moment becomes this process's shard of
-    it under ``pspecs`` (the moments take their parameter's spec).  A spec
-    entry of several axes cuts major axis first, as ``all_gather_params``
-    rebuilds it."""
+    it under ``pspecs`` (the moments take their parameter's spec)."""
     tensors = _per_param(state)
-    shards = []
-    for t, spec in zip(tensors, pspecs * (len(tensors) // len(pspecs)), strict=True):
-        for dim, axes in spec_dims(spec, t.ndim):
-            for ax in axes:
-                t = torch.chunk(t, mesh.size(mesh.mesh_dim_names.index(ax)), dim=dim)[mesh.get_local_rank(ax)]
-        shards.append(t.clone())
+    shards = [_local_shard(t, spec, mesh).clone()
+              for t, spec in zip(tensors, pspecs * (len(tensors) // len(pspecs)), strict=True)]
     _set_per_param(state, shards)
 
 

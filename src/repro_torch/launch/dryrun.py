@@ -60,6 +60,7 @@ from repro_torch.analysis.specs_audit import DECLARED_MESHES
 from repro_torch.configs import SHAPES, list_archs, skip_reason
 from repro_torch.launch.mesh import HW
 from repro_torch.launch.specs import CellPlan, _shards, _tensors, plan_cell
+from repro_torch.models.moe import MOE_GROUP  # the points hold whole groups
 
 __all__ = ["MESHES", "measure_model_run", "run_cell", "run_cells", "step_inventory"]
 
@@ -86,7 +87,6 @@ def _run_once(plan: CellPlan, repeats: int | None) -> dict:
 
 
 SEQ_STEP = 512  # the blocked attention's block; the sequence points of a Mamba config are multiples of it
-MOE_GROUP = 2048  # tokens an MoE layer routes as one group (models.transformer): the points hold whole groups
 
 
 def _at_depth(plan: CellPlan, direct: bool) -> dict:

@@ -25,7 +25,10 @@ What a cell's device runs (``CellPlan.model_run``) is the port's own path
 for one device's rows: a training microbatch's loss and gradients through
 the blocked attention and ``weighted_accum`` (the step runs ``w`` of them),
 the serving prefill through the flash (and RWKV6) kernels, or one decode
-step on the per-slot cache.  The port shards no activation over ``model``:
+step on the per-slot cache.  A train cell's rows are those one process of
+the port's step runs: across pods a masked microbatch's ``micro_bs /
+data`` (``hetero_step.data_split``), a while cell's whole microbatch.  The
+port shards no activation over ``model``:
 a device runs every head of its rows, with its parameters whole (gathered
 under ``fsdp="gather"``).  ``CellPlan.step_run`` is the cell's train step
 on a mesh of processes (``dist.hetero_step``), its state sharded under
@@ -44,7 +47,7 @@ import torch
 
 from repro_torch.configs import get_config, train_accum
 from repro_torch.configs.shapes import SHAPES, ShapeSpec
-from repro_torch.dist.hetero_step import HeteroStepConfig, build_train_step
+from repro_torch.dist.hetero_step import HeteroStepConfig, build_train_step, data_split
 from repro_torch.dist.sharding import _matmul_spec, cache_specs, param_specs, state_specs
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
@@ -323,10 +326,15 @@ class CellPlan:
     def step_run(self, mesh, seq: int = 1):
         """``fn()``: this process's train step of the cell on ``mesh`` (a
         ``DeviceMesh``), on meta tensors, with the batch's sequences cut to
-        ``seq`` tokens (the collectives carry parameter shapes only)."""
+        ``seq`` tokens (the collectives carry parameter shapes only).  The
+        step keeps the cell's ``seq_len``, so it splits the microbatches as
+        at full length (``hetero_step.data_split``); the step takes the cut
+        batch because it is on the meta device, where no loss is computed
+        (at full length jamba-1.5's Mamba scan walks 4,096 tokens a layer
+        in Python)."""
         if self.kind != "train":
             raise ValueError("only a train cell has a step")
-        cfg, scfg = self.cfg, dataclasses.replace(self.scfg, seq_len=seq)
+        cfg, scfg = self.cfg, self.scfg
         params = transformer.Transformer(cfg, META).requires_grad_(True)
         state = {"params": params, "opt": adamw_init(list(params.parameters()), self.opt_cfg),
                  "step": torch.zeros((), dtype=torch.int32, device=META)}
@@ -422,11 +430,14 @@ def _plan_train(arch, shape, cfg, mesh, sizes, hetero) -> CellPlan:
     state = {"params": params, "opt": adamw_init(list(params.parameters()), opt_cfg),
              "step": torch.zeros((), dtype=torch.int32, device=META)}
     sspecs = state_specs(state, sizes, cfg, fsdp=bool(part.fsdp_mode), fsdp_axes=part.fsdp_axes)
-    # batch: (R, W_max, mb, S); mb sharded over "data" in multi-pod meshes
+    # batch: (R, W_max, mb, S); mb sharded over "data" in multi-pod meshes (the reference's spec and bytes).
+    # A device's rows are what the port's step runs: masked mode splits mb over "data" (data_split), while
+    # mode runs the whole microbatch on every device of a pod (the reference's fully manual body)
     if multi_pod and micro_bs % sizes["data"] == 0:
-        bspec, rows = ("pod", None, "data", None), micro_bs // sizes["data"]
+        bspec = ("pod", None, "data", None)
     else:
-        bspec, rows = (part.alloc_axis, None, None, None), micro_bs
+        bspec = (part.alloc_axis, None, None, None)
+    rows = micro_bs // data_split(cfg, scfg, sizes)
     bshape = (R, w_max, micro_bs, shape.seq_len)
     batch = [Leaf(("batch", "inputs"), bshape, torch.int32, bspec),
              Leaf(("batch", "targets"), bshape, torch.int32, bspec),

@@ -16,7 +16,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init_
 from repro_torch.models.mlp import _act
 
-__all__ = ["MoE", "moe_apply"]
+__all__ = ["MOE_GROUP", "MoE", "moe_apply"]
+
+MOE_GROUP = 2048  # the tokens a training step routes as one group (the reference's moe_apply default)
 
 
 class MoE(nn.Module):
@@ -99,7 +101,7 @@ def _top_k_dispatch(
 
 
 def moe_apply(
-    p: MoE, x: torch.Tensor, cfg: ModelConfig, group_size: int = 2048, top_idx: torch.Tensor | None = None
+    p: MoE, x: torch.Tensor, cfg: ModelConfig, group_size: int = MOE_GROUP, top_idx: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, dict]:
     """x: (B, S, d) -> (out (B, S, d), {"aux_loss", "z_loss", "dropped_frac", "top_idx"}).
 

@@ -34,7 +34,7 @@ from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import dense_init_, embed, make_norm, norm_apply
 from repro_torch.models.mlp import MLP, mlp_apply
-from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.moe import MOE_GROUP, MoE, moe_apply
 
 __all__ = [
     "Block",
@@ -217,7 +217,7 @@ def _norm(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _ffn_half(
-    layer: Block, h: torch.Tensor, mix: torch.Tensor, cfg: ModelConfig, moe_group: int = 2048, moe_metrics=None,
+    layer: Block, h: torch.Tensor, mix: torch.Tensor, cfg: ModelConfig, moe_group: int = MOE_GROUP, moe_metrics=None,
     moe_routes=None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The mixer's residual, then the ffn sub-block with its own.  Returns

@@ -17,10 +17,11 @@ handed over in its npz checkpoint format.  Checked:
 * ``param_specs``/``state_specs``/``cache_specs`` equal to the reference's,
   dimension for dimension (the stacking dimension left out);
 * the step at 4 ranks (while + psum, while + ring, while + gather, while +
-  gather + ring, masked, masked + per-microbatch FSDP) against the
-  reference's step on a (4, 1) mesh: loss rtol 1e-5, parameters within
-  1e-5; allocation invariance; the sharded state at about 1/4; while mode
-  with per-microbatch FSDP refused across processes;
+  gather + ring, masked, masked + per-microbatch FSDP, while + ``fsdp=True``
+  over ``"model"``, off the allocation axis) against the reference's step
+  on a (4, 1) mesh: loss rtol 1e-5, parameters within 1e-5; allocation
+  invariance; the sharded state at about 1/4; while mode with
+  ``fsdp=True`` over the allocation axis refused (``ValueError``);
 * the 4-process train CLI (``--mode while --fsdp gather`` with a ``fail``
   event) against the reference CLI under 4 host devices (losses 1e-5,
   allocations), and a kill and resume across the group change, exact.
@@ -341,6 +342,8 @@ VARIANTS = {
     "gather_ring": dict(mode="while", fsdp="gather", collective="ring"),
     "masked": dict(mode="masked"),
     "masked_fsdp": dict(mode="masked", fsdp=True),
+    # the reference admits it off the allocation axis: its manual body takes the parameters whole
+    "while_fsdp_true": dict(mode="while", fsdp=True, fsdp_axes=["model"]),
 }
 
 STEP_REFERENCE = """
@@ -355,6 +358,7 @@ batch = {{k: jnp.asarray(v) for k, v in np.load("{work}/step_batch.npz").items()
 variants = json.loads('{variants}')
 out = {{}}
 for name, kw in variants.items():
+    kw = {{k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}}
     scfg = HeteroStepConfig(w_max={W}, micro_bs={MB}, seq_len={S}, alloc_axis="data", **kw)
     state = init_train_state(cfg, scfg, jax.random.PRNGKey(0))
     s1, m1 = build_train_step(cfg, scfg, mesh)(state, batch)
@@ -388,10 +392,14 @@ def start():
     tree, _ = restore_pytree(f"{{work}}/start", train_state_spec(blank, cfg))
     return as_train_state(tree, cfg, torch.device("cpu"), {{"mu": [torch.float32] * 20, "nu": [torch.float32] * 20}})
 
-pspecs = param_specs(init_train_state(cfg, like_scfg, device="cpu")["params"], axis_sizes(mesh), cfg, fsdp=True)
+def specs_of(scfg):
+    return param_specs(init_train_state(cfg, like_scfg, device="cpu")["params"], axis_sizes(mesh), cfg, fsdp=True,
+                       fsdp_axes=scfg.fsdp_axes)
 
 def run(kw, batch):
+    kw = {{k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}}
     scfg = HeteroStepConfig(w_max=W, micro_bs=MB, seq_len=S, **kw)
+    pspecs = specs_of(scfg)
     state = start()
     full = sum(p.numel() for p in state["params"].parameters())
     if scfg.fsdp in ("gather", True):
@@ -427,12 +435,12 @@ for name in ("psum", "gather"):
         got.append((loss, [p.detach().clone() for p in state["params"].parameters()]))
     param_gap = max((a - b).abs().max().item() for a, b in zip(got[0][1], got[1][1]))
     report["invariance_" + name] = {{"loss_gap": abs(got[0][0] - got[1][0]) / abs(got[0][0]), "param_gap": param_gap}}
-try:  # per-microbatch FSDP across processes is the masked partition: while mode takes fsdp="gather"
+try:  # while mode with per-microbatch FSDP over the allocation axis: the reference's deadlock class
     build_train_step(cfg, HeteroStepConfig(w_max=W, micro_bs=MB, seq_len=S, mode="while", fsdp=True,
-                                           alloc_axis="data", fsdp_axes=("model",)), mesh=mesh)
-    report["while_fsdp_true"] = "accepted"
-except NotImplementedError as e:
-    report["while_fsdp_true"] = "refused"
+                                           alloc_axis="data", fsdp_axes=("data",)), mesh=mesh)
+    report["while_fsdp_over_alloc"] = "accepted"
+except ValueError as e:
+    report["while_fsdp_over_alloc"] = "refused"
 if rank == 0:
     np.savez(f"{{work}}/step_port.npz", **out)
 print(json.dumps(report))
@@ -484,9 +492,10 @@ def test_step_at_4_ranks_matches_the_reference_step(tmp_path):
         for name in ("gather", "gather_ring", "masked_fsdp"):
             assert 0.2 < rep[name]["state_ratio"] < 0.3, rep[name]  # 1/4 but the replicated norm gains
         assert rep["psum"]["state_ratio"] == 1.0
+        assert rep["while_fsdp_true"]["state_ratio"] == 1.0  # sharded over "model", of size 1 here
         for name in ("invariance_psum", "invariance_gather"):
             assert rep[name]["loss_gap"] <= 1e-6 and rep[name]["param_gap"] < TOL, rep[name]
-        assert rep["while_fsdp_true"] == "refused"
+        assert rep["while_fsdp_over_alloc"] == "refused"
 
 
 # ---------------------------------------------------------------------------

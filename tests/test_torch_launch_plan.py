@@ -303,7 +303,9 @@ def test_step_inventory_of_a_multi_pod_moe_cell():
     float32 gradients over "data" once, and a block's norm gains and the
     final norm take one all_reduce over "data".  A step ends with one
     all_reduce over "pod" of the shard sums (one float32 call), the loss and
-    the tokens."""
+    the tokens, and one over "data" of the loss and the tokens: each process
+    runs its 2 of a microbatch's 32 rows (two whole routing groups at 4,096
+    tokens a row)."""
     plan = tspecs.plan_cell("olmoe-1b-7b", "train_4k", _port_mesh("multi_pod_2x16x16"))
     scfg = plan.scfg
     assert (scfg.mode, scfg.alloc_axis, scfg.fsdp, scfg.fsdp_axes) == ("masked", "pod", True, ("data",))
@@ -317,6 +319,34 @@ def test_step_inventory_of_a_multi_pod_moe_cell():
     assert inv["all_reduce", "pod"] == 3
     assert inv["all_reduce", "data"] >= W * (L + 1)
     assert ("reduce_scatter", "pod") not in inv and ("reduce_scatter", "model") not in inv
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_plan_rows_are_the_rows_one_process_of_the_step_runs(arch, monkeypatch):
+    """Every multi-pod train cell: ``plan.rows``, the rows the dry run
+    reckons a device's activations at, equals the rows of each microbatch
+    that rank 0 of the port's step runs (its step traced on meta tensors at
+    one repeat of the layer pattern, each microbatch's rows read at the
+    loss): ``micro_bs / data`` in the masked cells, whose microbatches the
+    step splits over "data" (the MoE cells' split rows hold whole routing
+    groups), ``micro_bs`` in the while cells, whose whole microbatch every
+    device of a pod runs, as in the reference's fully manual body."""
+    from repro_torch.analysis.recorder import trace_ranks
+
+    plan = tspecs.plan_cell(arch, "train_4k", _port_mesh("multi_pod_2x16x16"))
+    plan = dataclasses.replace(plan, cfg=plan.cut(1))
+    scfg, real, seen = plan.scfg, ttf.loss_fn, []
+
+    def loss_fn(params, batch, cfg, *args, **kw):
+        seen.append(batch["inputs"].shape[0])
+        return real(params, batch, cfg, *args, **kw)
+
+    monkeypatch.setattr(ttf, "loss_fn", loss_fn)
+    axes = tuple(plan.sizes)
+    trace_ranks(lambda mesh: plan.step_run(mesh)(), tuple(plan.sizes[a] for a in axes), axes, ranks=[0])
+    assert len(seen) == (scfg.w_max if scfg.mode == "masked" else plan.w)  # one rank row a process
+    assert set(seen) == {plan.rows}
+    assert plan.rows == (scfg.micro_bs // plan.sizes["data"] if scfg.mode == "masked" else scfg.micro_bs)
 
 
 def test_dryrun_json_is_byte_identical_and_an_error_cell_exits_nonzero(tmp_path, monkeypatch):
