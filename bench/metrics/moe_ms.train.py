@@ -1,0 +1,11 @@
+"""Device time a traced step spends in the model's MoE layers (ms): the kernels
+launched inside the program's ``repro.model.moe`` ranges (its routing, its
+experts, the dispatch and combine between them) and their ``.bwd`` twins, each
+put down to the innermost ``repro.*`` range open at its launch (``program_s``,
+harness/program.py), over the traced steps."""
+
+
+def read(run):
+    s = (run.get("trace") or {}).get("program_s") or {}
+    got = [v for k, v in s.items() if k == "repro.model.moe" or k.startswith("repro.model.moe.")]
+    return 1e3 * sum(got) / run["mix"]["traced_steps"] if got else None

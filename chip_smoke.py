@@ -1270,7 +1270,7 @@ def _profile_microbatch(trainer):
     one = torch.ones((1,), device="cuda")
 
     def body():
-        _, _, g = _micro_grads(model, params, x, y, trainer.model_cfg, trainer.scfg)
+        _, _, _, g = _micro_grads(model, params, x, y, trainer.model_cfg, trainer.scfg)
         ops.weighted_accum_tree(gsum, g, one, out=gsum)
 
     body()

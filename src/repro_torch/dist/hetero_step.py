@@ -114,6 +114,7 @@ from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import reference_ndims, reference_paths
 from repro_torch.models.moe import MOE_GROUP
+from repro_torch.obs.ranges import region
 from repro_torch.optim import (
     AdamWConfig,
     SGDConfig,
@@ -226,13 +227,16 @@ def data_split(cfg: ModelConfig, scfg: HeteroStepConfig, sizes: dict) -> int:
 
 
 def _micro_loss_sum(params, inputs, targets, cfg: ModelConfig, scfg: HeteroStepConfig):
-    """Summed (not averaged) loss of ONE microbatch: ``(loss * tokens, tokens)``.
-    Dividing the accumulated sum by the accumulated token count after the
-    reduction is what makes the update allocation-invariant."""
+    """Summed (not averaged) loss of ONE microbatch: ``(loss * tokens, tokens,
+    (moe_kept, moe_choices))``, the last the expert choices the MoE layers'
+    capacity kept and made (``transformer.forward``).  Dividing the
+    accumulated sum by the accumulated token count after the reduction is
+    what makes the update allocation-invariant."""
     del scfg  # static shapes already baked into the batch
-    loss, aux = transformer.loss_fn(params, {"inputs": inputs, "targets": targets}, cfg)
-    tokens = aux["tokens"]
-    return loss * tokens, tokens
+    with region("repro.train.forward"):
+        loss, aux = transformer.loss_fn(params, {"inputs": inputs, "targets": targets}, cfg)
+        tokens = aux["tokens"]
+        return loss * tokens, tokens, (aux["moe_kept"], aux["moe_choices"])
 
 
 def init_train_state(
@@ -255,65 +259,80 @@ def init_train_state(
 
 
 def _micro_grads(model, params, x, y, cfg, scfg):
-    loss_sum, tokens = _micro_loss_sum(model, x, y, cfg, scfg)
-    grads = torch.autograd.grad(loss_sum, params)
-    return loss_sum.detach(), tokens.detach(), grads
+    """One microbatch's ``(loss_sum, tokens, (moe_kept, moe_choices), grads)``."""
+    loss_sum, tokens, moe = _micro_loss_sum(model, x, y, cfg, scfg)
+    with region("repro.train.backward"):
+        grads = torch.autograd.grad(loss_sum, params)
+    return loss_sum.detach(), tokens.detach(), moe, grads
 
 
 def _zero_carry(params, grad_dtype):
+    """The gradient sum, and the float32 scalar sums: loss, tokens, MoE choices kept and made."""
     dev = params[0].device
     gz = [torch.zeros(p.shape, dtype=grad_dtype, device=dev) for p in params]
-    return gz, torch.zeros((), dtype=torch.float32, device=dev), torch.zeros((), dtype=torch.float32, device=dev)
+    return gz, *(torch.zeros((), dtype=torch.float32, device=dev) for _ in range(4))
 
 
 def _while_accum(model, params, inputs, targets, alloc, cfg, scfg):
-    """Each rank does exactly ``alloc[r]`` microbatches (host trip counts)."""
+    """Each rank does exactly ``alloc[r]`` microbatches (host trip counts),
+    each in a ``repro.train.slot`` range."""
     gdt = getattr(torch, scfg.grad_dtype)
-    gsum, lsum, tsum = _zero_carry(params, gdt)
+    gsum, lsum, tsum, ksum, csum = _zero_carry(params, gdt)
     one = torch.ones((1,), dtype=torch.float32, device=params[0].device)
     W = inputs.shape[1]
     for r in range(inputs.shape[0]):
         for j in range(min(int(alloc[r]), W)):
-            ls, tk, g = _micro_grads(model, params, inputs[r, j], targets[r, j], cfg, scfg)
-            # the port's route: acc + 1.0 * g.to(acc.dtype) in float32, in place
-            # (== the reference's inline a + b.astype(a.dtype), hetero_step.py:219), one launch
-            # a tree; each gradient is freed as its copy is made, so a microbatch holds its
-            # gradient once in grad_dtype, not twice, and none while the next one runs
-            g = list(g)
-            for i in range(len(g)):
-                g[i] = g[i].to(gdt)
-            kops.weighted_accum_tree(gsum, g, one, out=gsum)
-            del g
-            lsum = lsum + ls
-            tsum = tsum + tk
-    return gsum, lsum, tsum
+            with region("repro.train.slot"):
+                ls, tk, (kept, choices), g = _micro_grads(model, params, inputs[r, j], targets[r, j], cfg, scfg)
+                # the port's route: acc + 1.0 * g.to(acc.dtype) in float32, in place
+                # (== the reference's inline a + b.astype(a.dtype), hetero_step.py:219), one launch
+                # a tree; each gradient is freed as its copy is made, so a microbatch holds its
+                # gradient once in grad_dtype, not twice, and none while the next one runs
+                with region("repro.train.accumulate"):
+                    g = list(g)
+                    for i in range(len(g)):
+                        g[i] = g[i].to(gdt)
+                    kops.weighted_accum_tree(gsum, g, one, out=gsum)
+                    del g
+                    lsum = lsum + ls
+                    tsum = tsum + tk
+                    ksum = ksum + kept
+                    csum = csum + choices
+    return gsum, lsum, tsum, ksum, csum
 
 
 def _masked_grads(model, params, inputs, targets, alloc, cfg, scfg):
-    """Every one of the W slots on every rank, weighted by ``1[j < alloc[r]]``."""
+    """Every one of the W slots on every rank, weighted by ``1[j < alloc[r]]``;
+    each slot in a ``repro.train.slot`` range."""
     gdt = getattr(torch, scfg.grad_dtype)
     dev = params[0].device
     R, W = inputs.shape[:2]
     alloc_t = torch.as_tensor(np.asarray(alloc), dtype=torch.int64).to(dev)
     mask = (torch.arange(W, device=dev)[None, :] < alloc_t[:, None]).float()  # (R, W) on the device
-    gsum, lsum, tsum = _zero_carry(params, gdt)
+    gsum, lsum, tsum, ksum, csum = _zero_carry(params, gdt)
     one = torch.ones((1,), dtype=torch.float32, device=dev)
     for j in range(W):
-        slot = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in params]
-        slot_l = torch.zeros((), dtype=torch.float32, device=dev)
-        slot_t = torch.zeros((), dtype=torch.float32, device=dev)
-        for r in range(R):
-            ls, tk, g = _micro_grads(model, params, inputs[r, j], targets[r, j], cfg, scfg)
-            m = mask[r, j : j + 1]  # the rank's weight for this slot, read by the kernel on the device
-            # the port's route for the tensordot of hetero_step.py:190: slot += m_r * g_r in float32
-            kops.weighted_accum_tree(slot, g, m, out=slot)
-            del g  # not held while the next rank's microbatch runs
-            slot_l = slot_l + m[0] * ls
-            slot_t = slot_t + m[0] * tk
-        kops.weighted_accum_tree(gsum, [s.to(gdt) for s in slot], one, out=gsum)
-        lsum = lsum + slot_l
-        tsum = tsum + slot_t
-    return gsum, lsum, tsum
+        with region("repro.train.slot"):
+            with region("repro.train.accumulate"):
+                slot = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in params]
+                slot_l = torch.zeros((), dtype=torch.float32, device=dev)
+                slot_t = torch.zeros((), dtype=torch.float32, device=dev)
+            for r in range(R):
+                ls, tk, (kept, choices), g = _micro_grads(model, params, inputs[r, j], targets[r, j], cfg, scfg)
+                with region("repro.train.accumulate"):
+                    m = mask[r, j : j + 1]  # the rank's weight for this slot, read by the kernel on the device
+                    # the port's route for the tensordot of hetero_step.py:190: slot += m_r * g_r in float32
+                    kops.weighted_accum_tree(slot, g, m, out=slot)
+                    del g  # not held while the next rank's microbatch runs
+                    slot_l = slot_l + m[0] * ls
+                    slot_t = slot_t + m[0] * tk
+                    ksum = ksum + m[0] * kept
+                    csum = csum + m[0] * choices
+            with region("repro.train.accumulate"):
+                kops.weighted_accum_tree(gsum, [s.to(gdt) for s in slot], one, out=gsum)
+                lsum = lsum + slot_l
+                tsum = tsum + slot_t
+    return gsum, lsum, tsum, ksum, csum
 
 
 def _masked_unit_grads(model, anchors, inputs, targets, alloc, weight, cfg, scfg):
@@ -322,30 +341,38 @@ def _masked_unit_grads(model, anchors, inputs, targets, alloc, weight, cfg, scfg
     weight ``1[j < alloc[r]]`` (times ``weight``, 0 where another process
     holds the same rows) is the gradient at the loss, so the reduce-scatters
     of the backward sum weighted gradients; each row's float32 shard
-    gradients go into the slot, the slot into the sum, at scale 1."""
+    gradients go into the slot, the slot into the sum, at scale 1.  Each
+    slot runs in a ``repro.train.slot`` range."""
     gdt = getattr(torch, scfg.grad_dtype)
     dev = anchors[0].device
     R, W = inputs.shape[:2]
     alloc_t = torch.as_tensor(np.asarray(alloc), dtype=torch.int64).to(dev)
     mask = (torch.arange(W, device=dev)[None, :] < alloc_t[:, None]).float()  # (R, W) on the device
-    gsum, lsum, tsum = _zero_carry(anchors, gdt)
+    gsum, lsum, tsum, ksum, csum = _zero_carry(anchors, gdt)
     one = torch.ones((1,), dtype=torch.float32, device=dev)
     for j in range(W):
-        slot = [torch.zeros(a.shape, dtype=torch.float32, device=dev) for a in anchors]
-        slot_l = torch.zeros((), dtype=torch.float32, device=dev)
-        slot_t = torch.zeros((), dtype=torch.float32, device=dev)
-        for r in range(R):
-            ls, tk = _micro_loss_sum(model, inputs[r, j], targets[r, j], cfg, scfg)
-            m = mask[r, j]
-            g = torch.autograd.grad(ls, anchors, grad_outputs=m * weight)
-            kops.weighted_accum_tree(slot, g, one, out=slot)
-            del g  # not held while the next row runs
-            slot_l = slot_l + m * ls.detach()
-            slot_t = slot_t + m * tk.detach()
-        kops.weighted_accum_tree(gsum, [s.to(gdt) for s in slot], one, out=gsum)
-        lsum = lsum + slot_l
-        tsum = tsum + slot_t
-    return gsum, lsum, tsum
+        with region("repro.train.slot"):
+            with region("repro.train.accumulate"):
+                slot = [torch.zeros(a.shape, dtype=torch.float32, device=dev) for a in anchors]
+                slot_l = torch.zeros((), dtype=torch.float32, device=dev)
+                slot_t = torch.zeros((), dtype=torch.float32, device=dev)
+            for r in range(R):
+                ls, tk, (kept, choices) = _micro_loss_sum(model, inputs[r, j], targets[r, j], cfg, scfg)
+                m = mask[r, j]
+                with region("repro.train.backward"):
+                    g = torch.autograd.grad(ls, anchors, grad_outputs=m * weight)
+                with region("repro.train.accumulate"):
+                    kops.weighted_accum_tree(slot, g, one, out=slot)
+                    del g  # not held while the next row runs
+                    slot_l = slot_l + m * ls.detach()
+                    slot_t = slot_t + m * tk.detach()
+                    ksum = ksum + m * kept
+                    csum = csum + m * choices
+            with region("repro.train.accumulate"):
+                kops.weighted_accum_tree(gsum, [s.to(gdt) for s in slot], one, out=gsum)
+                lsum = lsum + slot_l
+                tsum = tsum + slot_t
+    return gsum, lsum, tsum, ksum, csum
 
 
 def _unit_hook(model, params, anchors, specs, groups, reduce_axes, meter):
@@ -432,8 +459,12 @@ def build_train_step(
     (parameters, moments) and returned with ``step + 1``; under
     ``fsdp="gather"`` or ``fsdp=True`` on a mesh it holds this process's
     shards (:func:`shard_train_state`, which the caller applies).  ``metrics``: ``{"loss", "tokens",
-    "grad_norm", "lr"}`` float32 device scalars; ``loss`` is the global
-    token-weighted mean cross-entropy BEFORE the update.  ``step.meter`` (a
+    "grad_norm", "lr", "moe_kept", "moe_choices"}`` float32 device scalars; ``loss`` is the global
+    token-weighted mean cross-entropy BEFORE the update; ``moe_kept`` and
+    ``moe_choices`` sum the expert choices the MoE layers' capacity kept and
+    the choices made over this process's counted microbatches (0 without
+    MoE).  Under a profiler the step runs in the range ``repro.train.step``
+    and its parts in ``repro.train.*`` ranges (``obs.ranges``).  ``step.meter`` (a
     ``CommMeter``) counts the ring's bytes, the collective calls, the bytes
     gathered and reduced per microbatch, and the seconds in collectives."""
     sizes, groups = _axes(mesh)
@@ -499,18 +530,20 @@ def build_train_step(
         return gsum, lsum, tsum
 
     def reduce(gsum, lsum, tsum, device):
-        """The cross-rank reduction of the local carry: the paper's plug-in point."""
+        """The cross-rank reduction of the local carry: the paper's plug-in
+        point, in a ``repro.train.reduce`` range where it reduces anything."""
         if n == 1 and split == 1:
             return gsum, lsum, tsum
-        t0 = _clock(device)
-        if n > 1:
-            if ring and scfg.mode == "while":
-                gsum = ring_allreduce_tree(gsum, group, meter)
-            else:
-                gsum = [all_reduce(g, group, meter) for g in gsum]
-            lsum, tsum = all_reduce(lsum, group, meter), all_reduce(tsum, group, meter)
-        gsum, lsum, tsum = reduce_split(gsum, lsum, tsum)
-        meter.seconds += _clock(device) - t0
+        with region("repro.train.reduce"):
+            t0 = _clock(device)
+            if n > 1:
+                if ring and scfg.mode == "while":
+                    gsum = ring_allreduce_tree(gsum, group, meter)
+                else:
+                    gsum = [all_reduce(g, group, meter) for g in gsum]
+                lsum, tsum = all_reduce(lsum, group, meter), all_reduce(tsum, group, meter)
+            gsum, lsum, tsum = reduce_split(gsum, lsum, tsum)
+            meter.seconds += _clock(device) - t0
         return gsum, lsum, tsum
 
     def gathered_grads(model, params, x, y, alloc, device):
@@ -524,17 +557,18 @@ def build_train_step(
         for p, f in zip(params, full.values()):
             p.data = f
         try:
-            gsum, lsum, tsum = _while_accum(model, params, x, y, alloc, cfg, scfg)
+            gsum, lsum, tsum, ksum, csum = _while_accum(model, params, x, y, alloc, cfg, scfg)
         finally:
             for p, sh in zip(params, shards):
                 p.data = sh
         del full
-        t0 = _clock(device)
-        gsum = reduce_scatter_tree(dict(zip(labels, gsum)), spec_of, (scfg.alloc_axis,), groups,
-                                   use_ring=ring, meter=meter)
-        lsum, tsum = all_reduce(lsum, group, meter), all_reduce(tsum, group, meter)
-        meter.seconds += _clock(device) - t0
-        return list(gsum.values()), lsum, tsum
+        with region("repro.train.reduce"):
+            t0 = _clock(device)
+            gsum = reduce_scatter_tree(dict(zip(labels, gsum)), spec_of, (scfg.alloc_axis,), groups,
+                                       use_ring=ring, meter=meter)
+            lsum, tsum = all_reduce(lsum, group, meter), all_reduce(tsum, group, meter)
+            meter.seconds += _clock(device) - t0
+        return list(gsum.values()), lsum, tsum, ksum, csum
 
     def unit_grads(model, params, x, y, alloc, device):
         """``fsdp=True``: the masked slots over shards, each unit gathered for
@@ -545,21 +579,26 @@ def build_train_step(
                    for p in params]
         model.unit_hook = _unit_hook(model, params, anchors, pspecs, groups, reduce_axes, meter)
         try:
-            gsum, lsum, tsum = _masked_unit_grads(model, anchors, x, y, alloc, weight, cfg, scfg)
+            gsum, lsum, tsum, ksum, csum = _masked_unit_grads(model, anchors, x, y, alloc, weight, cfg, scfg)
         finally:
             del model.unit_hook
-        t0 = _clock(device)
-        if scfg.alloc_axis not in reduce_axes:
-            gsum = all_reduce_flat(gsum, group, meter)
-        lsum, tsum = all_reduce(lsum, group, meter), all_reduce(tsum, group, meter)
-        if split > 1:
-            if SPLIT_AXIS not in reduce_axes:
-                gsum = all_reduce_flat(gsum, groups[SPLIT_AXIS], meter)
-            lsum, tsum = all_reduce_flat([lsum, tsum], groups[SPLIT_AXIS], meter)
-        meter.seconds += _clock(device) - t0
-        return gsum, lsum, tsum
+        with region("repro.train.reduce"):
+            t0 = _clock(device)
+            if scfg.alloc_axis not in reduce_axes:
+                gsum = all_reduce_flat(gsum, group, meter)
+            lsum, tsum = all_reduce(lsum, group, meter), all_reduce(tsum, group, meter)
+            if split > 1:
+                if SPLIT_AXIS not in reduce_axes:
+                    gsum = all_reduce_flat(gsum, groups[SPLIT_AXIS], meter)
+                lsum, tsum = all_reduce_flat([lsum, tsum], groups[SPLIT_AXIS], meter)
+            meter.seconds += _clock(device) - t0
+        return gsum, lsum, tsum, ksum, csum
 
     def step(state, batch):
+        with region("repro.train.step"):
+            return _step(state, batch)
+
+    def _step(state, batch):
         alloc = batch["alloc"]
         alloc = alloc.cpu().numpy() if isinstance(alloc, torch.Tensor) else np.asarray(alloc)
         _host_check_alloc(alloc, scfg.w_max)
@@ -568,29 +607,31 @@ def build_train_step(
         device = params[0].device
         inputs, targets, alloc = local_rows(batch, alloc)
         if gather:
-            gsum, lsum, tsum = gathered_grads(model, params, inputs, targets, alloc, device)
+            gsum, lsum, tsum, ksum, csum = gathered_grads(model, params, inputs, targets, alloc, device)
         elif units:
-            gsum, lsum, tsum = unit_grads(model, params, inputs, targets, alloc, device)
-        elif scfg.mode == "masked":
-            gsum, lsum, tsum = reduce(*_masked_grads(model, params, inputs, targets, alloc, cfg, scfg), device)
+            gsum, lsum, tsum, ksum, csum = unit_grads(model, params, inputs, targets, alloc, device)
         else:
-            gsum, lsum, tsum = reduce(*_while_accum(model, params, inputs, targets, alloc, cfg, scfg), device)
-        denom = torch.clamp(tsum, min=1.0)
-        # in place where the sum is float32 already (it is ours): g.float() / denom
-        grads = [g.div_(denom) if g.dtype == torch.float32 else g.float() / denom for g in gsum]
-        if sharded:
-            gnorm = _sharded_global_norm(grads, pspecs, groups, meter)
-            if scfg.clip_norm > 0.0:
-                scale = torch.clamp(scfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-                grads = [(g.float() * scale).to(g.dtype) for g in grads]
-        elif scfg.clip_norm > 0.0:
-            grads, gnorm = clip_by_global_norm(grads, scfg.clip_norm)
-        else:
-            gnorm = global_norm(grads)
-        lr = lr_fn(state["step"])
-        _, opt = opt_update(grads, state["opt"], params, lr, ocfg, ndims=reference_ndims(model, cfg))
+            accum = _masked_grads if scfg.mode == "masked" else _while_accum
+            gsum, lsum, tsum, ksum, csum = accum(model, params, inputs, targets, alloc, cfg, scfg)
+            gsum, lsum, tsum = reduce(gsum, lsum, tsum, device)
+        with region("repro.train.optimizer"):
+            denom = torch.clamp(tsum, min=1.0)
+            # in place where the sum is float32 already (it is ours): g.float() / denom
+            grads = [g.div_(denom) if g.dtype == torch.float32 else g.float() / denom for g in gsum]
+            if sharded:
+                gnorm = _sharded_global_norm(grads, pspecs, groups, meter)
+                if scfg.clip_norm > 0.0:
+                    scale = torch.clamp(scfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+                    grads = [(g.float() * scale).to(g.dtype) for g in grads]
+            elif scfg.clip_norm > 0.0:
+                grads, gnorm = clip_by_global_norm(grads, scfg.clip_norm)
+            else:
+                gnorm = global_norm(grads)
+            lr = lr_fn(state["step"])
+            _, opt = opt_update(grads, state["opt"], params, lr, ocfg, ndims=reference_ndims(model, cfg))
         new_state = {"params": model, "opt": opt, "step": state["step"] + 1}
-        metrics = {"loss": lsum / denom, "tokens": tsum, "grad_norm": gnorm, "lr": lr}
+        metrics = {"loss": lsum / denom, "tokens": tsum, "grad_norm": gnorm, "lr": lr,
+                   "moe_kept": ksum, "moe_choices": csum}
         return new_state, metrics
 
     step.meter = meter

@@ -15,6 +15,7 @@ from torch import nn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init_
 from repro_torch.models.mlp import _act
+from repro_torch.obs.ranges import region
 
 __all__ = ["MOE_GROUP", "MoE", "moe_apply"]
 
@@ -103,13 +104,16 @@ def _top_k_dispatch(
 def moe_apply(
     p: MoE, x: torch.Tensor, cfg: ModelConfig, group_size: int = MOE_GROUP, top_idx: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, dict]:
-    """x: (B, S, d) -> (out (B, S, d), {"aux_loss", "z_loss", "dropped_frac", "top_idx"}).
+    """x: (B, S, d) -> (out (B, S, d), {"aux_loss", "z_loss", "dropped_frac", "top_idx", "routed"}).
 
     Groups of ``min(group_size, B·S)`` tokens; capacity ``max(int(k·g/E·cf), 1)``
     rounded up to a multiple of 4.  The losses are the reference's: the
     Switch load balance (E · sum_e mean gate_e · top-1 fraction_e) and the
     router z-loss (mean logsumexp²); ``dropped_frac`` is the share of tokens
-    no expert kept; ``top_idx`` (G, g, k) the experts each token chose.
+    no expert kept; ``top_idx`` (G, g, k) the experts each token chose;
+    ``routed`` (G, g) how many of its k choices kept each token.  Under a
+    profiler the router and the masks run in ``repro.model.moe.route``, the
+    expert matmuls in ``repro.model.moe.experts`` (``obs.ranges``).
     Passing a ``top_idx`` back routes by it in place of the router's top-k,
     so two runs that differ elsewhere (an attention route) can be compared
     with the routing, a discrete choice, held fixed."""
@@ -126,24 +130,26 @@ def moe_apply(
     cdt = cfg.dtype("compute")
 
     xg = x.reshape(G, g, d)
-    logits = torch.einsum("gnd,de->gne", xg.float(), p.router.float())
-    gates = torch.softmax(logits, dim=-1)
-    if top_idx is None:
-        top_idx = _top_k(gates, k)[1]
-    pairs = [_top_k_dispatch(gates[i], k, capacity, top_idx[i]) for i in range(G)]
-    dispatch = torch.stack([dc[0] for dc in pairs]).to(cdt)
-    combine = torch.stack([dc[1] for dc in pairs]).to(cdt)
+    with region("repro.model.moe.route"):
+        logits = torch.einsum("gnd,de->gne", xg.float(), p.router.float())
+        gates = torch.softmax(logits, dim=-1)
+        if top_idx is None:
+            top_idx = _top_k(gates, k)[1]
+        pairs = [_top_k_dispatch(gates[i], k, capacity, top_idx[i]) for i in range(G)]
+        dispatch = torch.stack([dc[0] for dc in pairs]).to(cdt)
+        combine = torch.stack([dc[1] for dc in pairs]).to(cdt)
 
     expert_in = torch.einsum("gnec,gnd->gecd", dispatch, xg.to(cdt))  # (G, E, C, d)
     # the experts as batched matmuls over E, the expert stacks read in place
     # (only the activations are laid out expert-major)
     xe = expert_in.transpose(0, 1).reshape(E, G * capacity, d)
-    w_up, w_down = p.w_up.to(cdt), p.w_down.to(cdt)
-    if cfg.mlp_gated:
-        h = _act(torch.matmul(xe, p.w_gate.to(cdt)), cfg.activation) * torch.matmul(xe, w_up)
-    else:
-        h = _act(torch.matmul(xe, w_up), cfg.activation)
-    expert_out = torch.matmul(h, w_down).reshape(E, G, capacity, d).transpose(0, 1)  # (G, E, C, d)
+    with region("repro.model.moe.experts"):
+        w_up, w_down = p.w_up.to(cdt), p.w_down.to(cdt)
+        if cfg.mlp_gated:
+            h = _act(torch.matmul(xe, p.w_gate.to(cdt)), cfg.activation) * torch.matmul(xe, w_up)
+        else:
+            h = _act(torch.matmul(xe, w_up), cfg.activation)
+        expert_out = torch.matmul(h, w_down).reshape(E, G, capacity, d).transpose(0, 1)  # (G, E, C, d)
     out = torch.einsum("gnec,gecd->gnd", combine, expert_out)
 
     me = gates.mean(dim=1)  # (G, E) mean router probability
@@ -153,5 +159,5 @@ def moe_apply(
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     routed = dispatch.sum(dim=(2, 3))  # (G, g): how many experts kept each token
     dropped = torch.mean((routed < 1).float())
-    metrics = {"aux_loss": aux_loss, "z_loss": z_loss, "dropped_frac": dropped, "top_idx": top_idx}
+    metrics = {"aux_loss": aux_loss, "z_loss": z_loss, "dropped_frac": dropped, "top_idx": top_idx, "routed": routed}
     return out.reshape(B, S, d).to(x.dtype), metrics

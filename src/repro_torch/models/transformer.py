@@ -35,6 +35,7 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import dense_init_, embed, make_norm, norm_apply
 from repro_torch.models.mlp import MLP, mlp_apply
 from repro_torch.models.moe import MOE_GROUP, MoE, moe_apply
+from repro_torch.obs.ranges import region
 
 __all__ = [
     "Block",
@@ -223,7 +224,9 @@ def _ffn_half(
     """The mixer's residual, then the ffn sub-block with its own.  Returns
     (h, the MoE layer's weighted auxiliary loss or None).  ``moe_group``: the
     MoE layer's token group; ``moe_metrics``, a list, receives its metrics;
-    ``moe_routes``, an iterator, gives its expert choice (``moe_apply``'s ``top_idx``)."""
+    ``moe_routes``, an iterator, gives its expert choice (``moe_apply``'s ``top_idx``).
+    The ffn runs in the range ``repro.model.moe`` or ``repro.model.mlp``
+    (``obs.ranges``; its backward in ``<name>.bwd``)."""
     if cfg.post_block_norm:
         mix = _norm(mix, layer.norm1_post, cfg)
     h = h + mix
@@ -231,13 +234,16 @@ def _ffn_half(
     aux = None
     if layer.spec.moe:
         route = next(moe_routes) if moe_routes is not None else None
-        ffn, metrics = moe_apply(layer.ffn, hi, cfg, group_size=moe_group, top_idx=route)
+        with region("repro.model.moe") as r:
+            ffn, metrics = moe_apply(layer.ffn, r.input(hi), cfg, group_size=moe_group, top_idx=route)
+            ffn = r.output(ffn)
         mo = cfg.moe
         aux = mo.router_aux_weight * metrics["aux_loss"] + mo.router_z_weight * metrics["z_loss"]
         if moe_metrics is not None:
             moe_metrics.append(metrics)
     else:
-        ffn = mlp_apply(layer.ffn, hi, cfg)
+        with region("repro.model.mlp") as r:
+            ffn = r.output(mlp_apply(layer.ffn, r.input(hi), cfg))
     if cfg.post_block_norm:
         ffn = _norm(ffn, layer.norm2_post, cfg)
     return h + ffn, aux
@@ -248,18 +254,27 @@ def _ffn_half(
 # ---------------------------------------------------------------------------
 
 
-def _train_layer(layer: Block, h: torch.Tensor, cfg: ModelConfig, attn_impl: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """One layer; returns (h, its MoE auxiliary loss, 0 for a dense ffn)."""
+def _train_layer(
+    layer: Block, h: torch.Tensor, cfg: ModelConfig, attn_impl: str
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer; returns (h, its MoE auxiliary loss, the expert choices its
+    capacity kept), both 0 for a dense ffn.  An attention mixer runs in the
+    range ``repro.model.attn`` (``obs.ranges``)."""
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if layer.spec.kind == "rwkv":
-        return rwkv_lib.rwkv_train(layer.rwkv, h, cfg), zero  # the block adds its own residuals
+        return rwkv_lib.rwkv_train(layer.rwkv, h, cfg), zero, zero  # the block adds its own residuals
     hi = _norm(h, layer.norm1, cfg)
     if layer.spec.kind == "attn":
-        mix = attn_lib.attention_train(layer.mixer, hi, cfg, layer.spec.attn_type, impl=attn_impl)
+        with region("repro.model.attn") as r:
+            mix = attn_lib.attention_train(layer.mixer, r.input(hi), cfg, layer.spec.attn_type, impl=attn_impl)
+            mix = r.output(mix)
     else:
         mix = mamba_lib.mamba_train(layer.mixer, hi, cfg)
-    h, aux = _ffn_half(layer, h, mix, cfg)
-    return h, zero if aux is None else aux
+    moe: list = []
+    h, aux = _ffn_half(layer, h, mix, cfg, moe_metrics=moe)
+    if aux is None:
+        return h, zero, zero
+    return h, aux, moe[0]["routed"].sum(dtype=torch.float32)
 
 
 def unit_parameters(params: Transformer) -> dict[str, list[str]]:
@@ -291,11 +306,32 @@ def _train_unit(params: Transformer, i: int, h: torch.Tensor, cfg: ModelConfig, 
         return _train_layer(params.layers[i], h, cfg, attn_impl)
 
 
+def _trunk(params: Transformer, inputs: torch.Tensor, cfg: ModelConfig, attn_impl: str) -> tuple[torch.Tensor, dict]:
+    """The embedding and the layers of the training forward:
+    (h (B, S, d), {"moe_aux", "moe_kept", "moe_choices"})."""
+    with _unit(params, "embed"):
+        h = _embed_in(params, inputs, cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    kept_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = cfg.remat and cfg.remat_policy != "none"
+    choices = 0
+    for i in range(len(params.layers)):
+        if remat:
+            h, aux, kept = checkpoint(_train_unit, params, i, h, cfg, attn_impl, use_reentrant=False)
+        else:
+            h, aux, kept = _train_unit(params, i, h, cfg, attn_impl)
+        aux_total = aux_total + aux
+        if params.layers[i].spec.moe:
+            kept_total = kept_total + kept
+            choices += h.shape[0] * h.shape[1] * cfg.moe.top_k
+    return h, {"moe_aux": aux_total, "moe_kept": kept_total, "moe_choices": float(choices)}
+
+
 def forward(
     params: Transformer, inputs: torch.Tensor, cfg: ModelConfig, attn_impl: str = "blocked"
 ) -> tuple[torch.Tensor, dict]:
     """Training forward: tokens (B, S), or (B, S, d) float embeddings with
-    ``cfg.embeds_input`` -> (logits (B, S, V), {"moe_aux"}).
+    ``cfg.embeds_input`` -> (logits (B, S, V), {"moe_aux", "moe_kept", "moe_choices"}).
 
     Computes in ``cfg.compute_dtype`` with every cast inside the graph
     (``linear`` casts each weight at its use, the embedding lookup and the
@@ -306,24 +342,18 @@ def forward(
     the matmul outputs) recomputes everything too: the values are the same.
     RWKV layers run ``rwkv.rwkv_train`` with the ``chunked`` WKV, as the
     reference trains them.  ``moe_aux`` sums ``router_aux_weight·aux_loss +
-    router_z_weight·z_loss`` over the MoE layers (0 without them).  Each
-    unit (the embedding, a layer, the final norm with the logits) runs in the
-    context of ``params.unit_hook`` where set (:func:`_unit`), a layer's
-    inside its checkpoint region."""
-    with _unit(params, "embed"):
-        h = _embed_in(params, inputs, cfg)
-    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    remat = cfg.remat and cfg.remat_policy != "none"
-    for i in range(len(params.layers)):
-        if remat:
-            h, aux = checkpoint(_train_unit, params, i, h, cfg, attn_impl, use_reentrant=False)
-        else:
-            h, aux = _train_unit(params, i, h, cfg, attn_impl)
-        aux_total = aux_total + aux
+    router_z_weight·z_loss`` over the MoE layers (0 without them);
+    ``moe_kept`` (float32, on the device) counts the expert choices their
+    capacity kept and ``moe_choices`` (a float) the choices made (tokens x
+    top-k), both over the MoE layers.  Each unit (the embedding, a layer,
+    the final norm with the logits) runs in the context of
+    ``params.unit_hook`` where set (:func:`_unit`), a layer's inside its
+    checkpoint region."""
+    h, metrics = _trunk(params, inputs, cfg, attn_impl)
     with _unit(params, "head"):
         h = _norm(h, params.final_norm, cfg)
         logits = _logits(params, h, cfg)
-    return logits, {"moe_aux": aux_total}
+    return logits, metrics
 
 
 def loss_fn(
@@ -331,20 +361,26 @@ def loss_fn(
 ) -> tuple[torch.Tensor, dict]:
     """Next-token cross entropy; batch: {"inputs", "targets", optional "mask"}.
 
-    Returns (loss, {"xent", "moe_aux", "tokens"}): the loss is the *sum* over
-    valid tokens divided by their count (at least 1), plus the MoE auxiliary
-    loss, as the reference defines it (exact under any task allocation)."""
-    logits, metrics = forward(params, batch["inputs"], cfg, attn_impl)
+    Returns (loss, {"xent", "moe_aux", "tokens", "moe_kept", "moe_choices"}):
+    the loss is the *sum* over valid tokens divided by their count (at least
+    1), plus the MoE auxiliary loss, as the reference defines it (exact under
+    any task allocation); the MoE counts are :func:`forward`'s.  The final
+    norm, the logits and the cross entropy run in the range
+    ``repro.model.head`` (``obs.ranges``)."""
+    h, metrics = _trunk(params, batch["inputs"], cfg, attn_impl)
     targets = batch["targets"]
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    token_count = torch.clamp(mask.sum(), min=1.0)
-    xent = -(ll * mask).sum() / token_count
+    with region("repro.model.head") as r:
+        with _unit(params, "head"):
+            logits = _logits(params, _norm(r.input(h), params.final_norm, cfg), cfg)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+        token_count = torch.clamp(mask.sum(), min=1.0)
+        xent = r.output(-(ll * mask).sum() / token_count)
     loss = xent + metrics["moe_aux"]
-    return loss, {"xent": xent, "moe_aux": metrics["moe_aux"], "tokens": token_count}
+    return loss, {"xent": xent, "tokens": token_count, **metrics}
 
 
 # ---------------------------------------------------------------------------

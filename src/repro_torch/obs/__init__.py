@@ -3,7 +3,9 @@
 Perfetto-viewable span/event traces on explicit (virtual or monotonic)
 clocks, and mergeable log-bucketed latency histograms behind a versioned
 snapshot schema.  See :mod:`repro_torch.obs.tracer`, :mod:`repro_torch.obs.metrics`,
-and the per-subsystem hook bundles in :mod:`repro_torch.obs.hooks`.
+and the per-subsystem hook bundles in :mod:`repro_torch.obs.hooks`.  Their
+counterpart on the card's clock, :mod:`repro_torch.obs.ranges`, names the
+training path's layers inside a ``torch.profiler`` session.
 """
 
 from repro_torch.obs.hooks import NULL_SERVE_OBS, RouterObs, ServeObs, TrainObs
@@ -16,6 +18,7 @@ from repro_torch.obs.metrics import (
     bench_rows_snapshot,
     registry_from_snapshot,
 )
+from repro_torch.obs.ranges import NULL_REGION, region
 from repro_torch.obs.tracer import NULL_TRACER, NullTracer, Tracer, VirtualClock
 
 __all__ = [
@@ -34,4 +37,6 @@ __all__ = [
     "ServeObs",
     "RouterObs",
     "NULL_SERVE_OBS",
+    "region",
+    "NULL_REGION",
 ]

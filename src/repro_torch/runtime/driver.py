@@ -84,7 +84,7 @@ from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import train_state_spec, train_state_to_jax
 from repro_torch.models.transformer import Transformer
-from repro_torch.obs import TrainObs
+from repro_torch.obs import TrainObs, region
 from repro_torch.optim import warmup_cosine
 from repro_torch.runtime.elastic import (
     ElasticCoordinator,
@@ -217,7 +217,7 @@ class ElasticTrainer:
         self.epoch = 0
         self.agg_index = 0
         self.losses: list[float] = []
-        self.step_log: list[dict] = []  # per step: loss, allocation, wall seconds, tokens
+        self.step_log: list[dict] = []  # per step: loss, allocation, wall seconds, tokens, MoE choices kept/made
         self.epoch_log: list[dict] = []
         self.membership_log: list[dict] = []
         self.straggler_flags = 0
@@ -624,25 +624,36 @@ class ElasticTrainer:
 
     def _run_epoch(self) -> None:
         """Train until the epoch completes, an event comes due, or the step
-        budget runs out.  Controller updates happen only on complete epochs."""
+        budget runs out.  Controller updates happen only on complete epochs.
+        Under a profiler each batch's draw and copies to the device run in a
+        ``repro.driver.batch`` range (``obs.ranges``)."""
         cfg = self.cfg
         alloc = np.asarray(self.alloc)
         n_agg = self.batcher.aggregations_per_epoch(alloc)
         steps_run = 0
-        for batch_np in self.batcher.epoch(self.epoch, alloc, start=self.agg_index):
-            if self.step_i >= cfg.steps or self._event_due():
+        batches = self.batcher.epoch(self.epoch, alloc, start=self.agg_index)
+        while True:
+            with region("repro.driver.batch"):
+                batch_np = next(batches, None)
+                stop = batch_np is not None and (self.step_i >= cfg.steps or self._event_due())
+                if batch_np is not None and not stop:
+                    batch = {
+                        "inputs": torch.from_numpy(batch_np["inputs"]).to(self.device).long(),
+                        "targets": torch.from_numpy(batch_np["targets"]).to(self.device).long(),
+                        "alloc": batch_np["alloc"],
+                    }
+            if batch_np is None:
+                break
+            if stop:
                 return  # leave agg_index where it is; caller decides
-            batch = {
-                "inputs": torch.from_numpy(batch_np["inputs"]).to(self.device).long(),
-                "targets": torch.from_numpy(batch_np["targets"]).to(self.device).long(),
-                "alloc": batch_np["alloc"],
-            }
             t0 = time.perf_counter()
-            loss = tokens = grad_norm = 0.0
+            loss = tokens = grad_norm = moe_kept = moe_choices = 0.0
             if self.member:
                 self.state, metrics = self.step_fn(self.state, batch)
                 loss = metrics["loss"].item()  # host sync: the wall clock covers the device work
                 tokens, grad_norm = float(metrics["tokens"]), float(metrics["grad_norm"])
+                # this process's counted microbatches (each process its own rows)
+                moe_kept, moe_choices = float(metrics["moe_kept"]), float(metrics["moe_choices"])
             wall = time.perf_counter() - t0
             loss, tokens, grad_norm, wall = self._from_rank0(loss, tokens, grad_norm, wall)
             self.timing.record_step(wall, batch_np["alloc"])
@@ -651,7 +662,8 @@ class ElasticTrainer:
             self.agg_index += 1
             steps_run += 1
             self.step_log.append({"step": self.step_i, "loss": loss, "alloc": np.asarray(batch_np["alloc"]).tolist(),
-                                  "wall_s": wall, "tokens": tokens, "grad_norm": grad_norm})
+                                  "wall_s": wall, "tokens": tokens, "moe_kept": moe_kept,
+                                  "moe_choices": moe_choices, "grad_norm": grad_norm})
             # the metadata (controller state_dict + log tail) is serialized
             # only on steps that save
             if self.mgr and self.mgr.is_due(self.step_i):
