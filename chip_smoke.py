@@ -65,6 +65,16 @@ nonzero exit and no result line, if anything is wrong:
    views, mixed dtype groups, a tree larger than one parameter table), new
    and in place: every tensor bit-equal, one launch per (acc, g) type group
    and table, every nonempty tensor counted.
+7a. MoE routing masks (``moe_kernels``): ``moe_dispatch`` against its
+   plain version and against the loop ``_top_k_dispatch`` a group at a time
+   (``MOE_DISPATCH_CASES``: olmoe-1b-7b's training groups, phi3.5-moe
+   prefill with capacity drops, a decode group of 8) in bf16 and float32:
+   dispatch, combine, routed, the slots and the gate's gradient bit for
+   bit; then its device time at the training groups' shapes beside the
+   plain version's and the loop's (the kernels line's ``moe_dispatch``
+   row, with its launches on every MoE serving path and in ``train_moe``,
+   which checks two launches an MoE layer a microbatch under remat and one
+   gradient launch).
 8. Train: ``ElasticTrainer`` (the train CLI's driver) trains smollm-360m at
    full width and depth (random weights from seed 0, seq 512, cut from the
    config's 2048 for the script's time as every training phase, micro_bs 1,
@@ -698,6 +708,105 @@ def phase_kernels(workload_lengths):
                     paged_attention_ref(*args, window=window), dtype,
                     f"{label}: lengths={lengths} H={H} Hkv={Hkv} Dh={Dh} page=16 window={window}")
     return main_err
+
+
+# the MoE routing masks (csrc/moe_dispatch.cu) at the shapes the port routes, bit for bit against the
+# plain versions (tests/test_torch_kernels.py MOE_DISPATCH_GPU_CASES): name: (G, g, E, k, capacity factor,
+# input); the first is the benchmark cell's (olmoe-1b-7b's training groups of 2,048 tokens, bf16)
+MOE_DISPATCH_CASES = {
+    "olmoe-1b-7b train groups": (4, 2048, 64, 8, 1.25, "router"),
+    "phi3.5-moe prefill, drops": (1, 512, 16, 2, 0.5, "router"),
+    "decode group of 8": (1, 8, 16, 2, 1.25, "idle rows"),
+}
+
+
+def moe_dispatch_inputs(name, seed=0):
+    """(gates (G, g, E) float32, top_idx (G, g, k), renormalised top_vals, capacity) of a case: random
+    router logits (five decode rows routed alike: idle slots), the top-k as ``models.moe`` takes it."""
+    G, g, E, k, cf, kind = MOE_DISPATCH_CASES[name]
+    rng = np.random.default_rng(g + E + k + seed)
+    logits = 2 * rng.standard_normal((G, g, E)).astype(np.float32)
+    if kind == "idle rows":
+        logits[:, [0, 2, 4, 5, 6]] = logits[:, :1]
+    gates = torch.softmax(torch.from_numpy(logits).cuda(), dim=-1)
+    top_idx = torch.sort(gates, dim=-1, descending=True, stable=True)[1][..., :k].contiguous()
+    top_vals = torch.gather(gates, 2, top_idx)
+    top_vals = top_vals / torch.clamp(top_vals.sum(-1, keepdim=True), min=1e-9)
+    return gates, top_idx, top_vals, -(-max(int(k * g / E * cf), 1) // 4) * 4
+
+
+def _moe_loop(gates, top_idx, capacity, dtype):
+    """The masks as ``moe_apply`` built them before the kernel: ``_top_k_dispatch`` a group at a time."""
+    from repro_torch.models.moe import _top_k_dispatch
+
+    pairs = [_top_k_dispatch(gates[i], top_idx.shape[-1], capacity, top_idx[i]) for i in range(gates.shape[0])]
+    dispatch = torch.stack([p[0] for p in pairs]).to(dtype)
+    return dispatch, torch.stack([p[1] for p in pairs]).to(dtype), dispatch.sum(dim=(2, 3))
+
+
+def phase_moe_kernels():
+    """moe_dispatch against its plain version and the loop at every case, bit for bit: dispatch, combine,
+    routed, the slots and the gate's gradient, each launch synchronised.  Returns the timing row's
+    numbers at the benchmark cell's shapes."""
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ops
+
+    for name in MOE_DISPATCH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            gates, top_idx, top_vals, capacity = moe_dispatch_inputs(name)
+            E = gates.shape[-1]
+            top_vals.requires_grad_(True)
+            got = ops.moe_dispatch(top_idx, top_vals, E, capacity, dtype)
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                plain = md.moe_dispatch_ref(top_idx, top_vals, E, capacity, dtype)
+                loop = _moe_loop(gates, top_idx, capacity, dtype)
+            same = {label: bool(torch.equal(x, y)) for label, x, y in
+                    zip(("dispatch", "combine", "routed", "slots"), got, plain)}
+            same_loop = {label: bool(torch.equal(x, y)) for label, x, y in
+                         zip(("dispatch", "combine", "routed"), got, loop)}
+            grad_combine = torch.randn(got[1].shape, device="cuda").to(dtype)
+            (grad,) = torch.autograd.grad(got[1], top_vals, grad_combine)
+            torch.cuda.synchronize()
+            same["grad"] = bool(torch.equal(grad, md.moe_dispatch_grad_ref(grad_combine, top_idx, got[3])))
+            kept = float((got[3] >= 0).float().mean())
+            log(phase="kernels", kernel="moe_dispatch", case=name, dtype=str(dtype).split(".")[1],
+                shape=list(top_idx.shape), experts=E, capacity=capacity, kept_share=kept, bit_equal_plain=same,
+                bit_equal_loop=same_loop)
+            check(all(same.values()) and all(same_loop.values()),
+                  f"moe_dispatch {name} {dtype}: bit for bit {same} {same_loop}")
+            if not name.startswith("olmoe"):
+                check(kept < 1.0, f"moe_dispatch {name}: the capacity drops some choices ({kept} kept)")
+    # the timing row's numbers at the benchmark cell's shapes, bf16
+    bf = torch.bfloat16
+    gates, top_idx, top_vals, capacity = moe_dispatch_inputs("olmoe-1b-7b train groups", seed=1)
+    G, g, E = gates.shape
+    masks = ops.moe_dispatch(top_idx, top_vals, E, capacity, bf)
+    grad_combine = torch.randn(masks[1].shape, device="cuda").to(bf)
+    out_bytes = 2 * G * g * E * capacity * 2 + G * g * 2 + top_idx.numel() * 4
+    in_bytes = top_idx.numel() * 8 + top_vals.numel() * 4
+    return dict(
+        shape=f"G={G} g={g} E={E} k={top_idx.shape[-1]} C={capacity} bf16", bytes=out_bytes + in_bytes,
+        ms=device_ms(lambda: md.moe_dispatch_cuda(top_idx, top_vals, E, capacity, bf), "moe_dispatch"),
+        grad_ms=device_ms(lambda: md.moe_dispatch_grad_cuda(grad_combine, top_idx, masks[3]), "moe_dispatch grad"),
+        plain_ms=device_ms(lambda: md.moe_dispatch_ref(top_idx, top_vals, E, capacity, bf), "moe_dispatch plain",
+                           iters=10, warmup=2),
+        loop_ms=device_ms(lambda: _moe_loop(gates, top_idx, capacity, bf), "moe_dispatch loop", iters=3, warmup=1),
+        call_ms=time_ms(lambda: md.moe_dispatch_cuda(top_idx, top_vals, E, capacity, bf)),
+        loop_call_ms=time_ms(lambda: _moe_loop(gates, top_idx, capacity, bf), iters=3, warmup=1),
+    )
+
+
+def moe_dispatch_timing_row(timing, launches):
+    """The kernels line's row of moe_dispatch: ``timing`` from phase_moe_kernels, launches by path."""
+    return dict(
+        name="moe_dispatch", route="cuda", source="src/repro_torch/kernels/csrc/moe_dispatch.cu",
+        route_detail="one block of 256 threads per (group, 32 tokens): counts by (expert, choice) from one walk "
+                     "of the group's top_idx (warp match + shared atomics), the tile's ranks by one match, then "
+                     "the tile's contiguous (32, E, C) rows of dispatch and combine by 16-byte streaming stores",
+        replaces=None, launches=sum(launches.values()), launches_by_path=launches, max_abs_err=0.0,
+        library_ms=None, flops=0, peak="HBM bytes", peak_flops=PEAK_BF16_FLOPS, **timing,
+    )
 
 
 def paged_scaling_inputs():
@@ -1947,7 +2056,7 @@ def _microbatch(model, x, y, cfg):
     t0 = time.perf_counter()
     loss, aux = loss_fn(model, {"inputs": x, "targets": y}, cfg)
     grads = torch.autograd.grad(loss, list(model.parameters()))
-    loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
+    loss, aux = loss.detach(), {k: aux[k].detach() for k in ("xent", "moe_aux")}  # moe_choices is a float
     return {"loss": float(loss), "xent": float(aux["xent"]), "moe_aux": float(aux["moe_aux"]),
             "grad_norm": float(global_norm(grads)), "seconds": time.perf_counter() - t0}
 
@@ -1955,10 +2064,11 @@ def _microbatch(model, x, y, cfg):
 def _train_family(name, spec, layers, want_kinds):
     """``spec``'s arch at full width and ``layers`` layers through the train
     CLI's driver on the card: finite losses, one weighted_accum launch a
-    microbatch over the whole gradient tree, the peak against the reckoning,
-    the MoE auxiliary loss folded in, and the 1-layer card-vs-CPU check, whose
-    CPU half runs on the host's other cores beside the training; returns the
-    launches."""
+    microbatch over the whole gradient tree, two moe_dispatch launches an MoE
+    layer a microbatch (forward and recomputation) and one gradient launch,
+    the peak against the reckoning, the MoE auxiliary loss folded in, and the
+    1-layer card-vs-CPU check, whose CPU half runs on the host's other cores
+    beside the training; returns the weighted_accum and moe_dispatch launches."""
     import concurrent.futures
 
     from repro_torch.configs import get_config
@@ -2025,13 +2135,17 @@ def _train_family(name, spec, layers, want_kinds):
           f"{name}: finite losses and gradient norms")
     check(launches["weighted_accum"] == micro > 0 and tensors == micro * n_tensors,
           f"{name}: one weighted_accum launch a microbatch over the whole gradient tree {launches} {tensors}")
+    n_moe = sum(spec.moe for spec in cfg.layer_specs())
+    check(launches["moe_dispatch"] == 2 * n_moe * micro and launches["moe_dispatch_grad"] == n_moe * micro,
+          f"{name}: one moe_dispatch launch an MoE layer in the forward and one in its recomputation, one "
+          f"gradient launch in the backward, a microbatch {launches}")
     check(peak <= TRAIN_PEAK_BYTES, f"{name}: peak {peak / 1e9:.2f} GB within {TRAIN_PEAK_BYTES / 1e9:.0f} GB")
     if any(spec.moe for spec in cfg.layer_specs()):
         check(folded["moe_aux"] > 0 and abs(folded["loss"] - folded["xent"] - folded["moe_aux"]) <= 1e-5 * folded["loss"],
               f"{name}: the MoE auxiliary loss is folded into the loss {folded}")
     check(all(np.isfinite(v) for half in (cpu, card) for v in half.values()), f"{name}: a finite card-vs-CPU run")
     check(max(gap.values()) <= CARD_CPU_RTOL, f"{name}: card vs CPU at 1 layer {gap}")
-    return launches["weighted_accum"]
+    return launches["weighted_accum"], launches["moe_dispatch"]
 
 
 def phase_train_moe():
@@ -2902,7 +3016,8 @@ def phase_serve_model(arch):
             prefill_logit_gap=gap32, **stats32)
         del p32, fresh
         _free_card()
-    return {"flash": launches["flash"]["flash_attention"], "paged": launches["paged"]["paged_attention"]}
+    return {"flash": launches["flash"]["flash_attention"], "paged": launches["paged"]["paged_attention"],
+            "moe": launches["flash"]["moe_dispatch"] + launches["paged"]["moe_dispatch"]}
 
 
 def _routing_flips(a, b, L):
@@ -3137,7 +3252,7 @@ def paged_scaling():
         share_of_bound=bound / ms)
 
 
-def phase_timing(main_err, launches, paged_lengths):
+def phase_timing(main_err, launches, paged_lengths, moe_row):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rwkv6_scan as rw
@@ -3230,6 +3345,7 @@ def phase_timing(main_err, launches, paged_lengths):
         ms_per_chunk=(scaling["T=256 H=32"] - scaling["T=32 H=32"]) / 7,
         note="B=1, D=64, chunk 32: T/32 chunks per block, 4 blocks a head; ms_per_chunk from T=32 to T=256")
     rows.append(accum_timing_row(launches["accum"], main_err["weighted_accum"]))
+    rows.append(moe_row)
     for r in rows:
         t_ops, t_bytes = r["flops"] / r["peak_flops"] * 1e3, r["bytes"] / PEAK_BYTES * 1e3
         r["bound_ms"] = max(t_ops, t_bytes)
@@ -3747,6 +3863,8 @@ def main() -> int:
     timed("paged_page_past_pool", phase_paged_page_past_pool, paged_lengths)
     main_err["rwkv6_scan"] = timed("rwkv_kernels", phase_rwkv_kernels)
     main_err["weighted_accum"] = timed("accum_kernels", phase_accum_kernels)
+    moe_timing = timed("moe_kernels", phase_moe_kernels)
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
@@ -3767,10 +3885,13 @@ def main() -> int:
     del router_params
     torch.cuda.empty_cache()
     paged_launches["serve_campaign"] = timed("serve_campaign", phase_serve_campaign)
+    moe_launches = {}
     for arch in [*DENSE, *MOE_HYBRID]:
         served = timed(_serve_phase(arch), phase_serve_model, arch)
         flash_launches[f"serve_{arch}"] = served["flash"]
         paged_launches[f"serve_{arch}"] = served["paged"]
+        if served["moe"]:
+            moe_launches[f"serve_{arch}"] = served["moe"]
     rwkv_launches = timed("rwkv_serve", phase_rwkv_serve)
     torch.cuda.empty_cache()
     accum_counts, _ = timed("train", phase_train)
@@ -3787,9 +3908,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     rwkv_train = timed("train_rwkv", phase_train_rwkv)
     torch.cuda.empty_cache()
-    moe_train = timed("train_moe", phase_train_moe)
+    moe_train, moe_launches["train_moe"] = timed("train_moe", phase_train_moe)
     torch.cuda.empty_cache()
-    hybrid_train = timed("train_hybrid", phase_train_hybrid)
+    hybrid_train, _ = timed("train_hybrid", phase_train_hybrid)
     torch.cuda.empty_cache()
     fsdp_gloo = timed("train_fsdp_gloo", phase_train_fsdp_gloo)
     torch.cuda.empty_cache()
@@ -3817,7 +3938,7 @@ def main() -> int:
     rows = timed("timing", phase_timing, main_err,
                  {"flash": flash_launches, "paged": paged_launches, "rwkv": rwkv_launches["rwkv6_scan"],
                   "accum": accum_counts},
-                 paged_lengths)
+                 paged_lengths, moe_dispatch_timing_row(moe_timing, moe_launches))
     log(phase="done", seconds=time.perf_counter() - t_start, phase_seconds=phase_times, nvidia_smi=smi)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

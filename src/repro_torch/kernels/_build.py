@@ -28,21 +28,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signature of each source's entry point: (name, argtypes); every one returns a cudaError_t
+# C signatures of each source's entry points: [(name, argtypes)]; every one returns a cudaError_t
 _ENTRY = {
-    "flash_attention": (
+    "flash_attention": [(
         "flash_attention_fwd",
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int64), _I, _I, _F, _I, _P],
-    ),
-    "paged_attention": (
+    )],
+    "moe_dispatch": [
+        ("moe_dispatch_fwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        ("moe_dispatch_bwd", [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int64), _P]),
+    ],
+    "paged_attention": [(
         "paged_attention_fwd",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    ),
-    "rwkv6_scan": (
+    )],
+    "rwkv6_scan": [(
         "rwkv6_scan_fwd",
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int64), _P],
-    ),
-    "weighted_accum": ("weighted_accum_tree_fwd", [_P, _I, _I, _P]),
+    )],
+    "weighted_accum": [("weighted_accum_tree_fwd", [_P, _I, _I, _P])],
 }
 
 _lock = threading.Lock()
@@ -96,9 +100,9 @@ def library(name: str) -> ctypes.CDLL:
             paths = build_all()
             for stem, path in paths.items():
                 lib = ctypes.CDLL(str(path))
-                fn_name, argtypes = _ENTRY[stem]
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                for fn_name, argtypes in _ENTRY[stem]:
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
                 _libs[stem] = lib
         return _libs[name]

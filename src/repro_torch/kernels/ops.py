@@ -12,12 +12,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_dispatch as _md
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rwkv6_scan as _rw
 from repro_torch.kernels import weighted_accum as _wa
 
 __all__ = [
     "flash_attention",
+    "moe_dispatch",
     "paged_attention",
     "rwkv6_scan",
     "weighted_accum",
@@ -29,6 +31,8 @@ __all__ = [
 
 _WRAPPERS = {
     "flash_attention": _fa.flash_attention_cuda,
+    "moe_dispatch": _md.moe_dispatch_cuda,
+    "moe_dispatch_grad": _md.moe_dispatch_grad_cuda,
     "paged_attention": _pa.paged_attention_cuda,
     "rwkv6_scan": _rw.rwkv6_scan_cuda,
     "weighted_accum": _wa.weighted_accum_cuda,
@@ -50,6 +54,14 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal=True, window=None
         return torch.empty(q.shape, dtype=q.dtype, device="meta")
     fn = _fa.flash_attention_cuda if route == "cuda" else _fa.flash_attention_ref
     return fn(q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+
+
+def moe_dispatch(top_idx, top_vals, n_experts: int, capacity: int, dtype: torch.dtype):
+    """The MoE routing masks of G token groups at once: (dispatch, combine,
+    routed, slots); see ``kernels.moe_dispatch`` for the layout.  ``combine``
+    is differentiable in ``top_vals`` (on the card, a second kernel gives the
+    gradient and counts under ``moe_dispatch_grad``)."""
+    return _md.MoEDispatch.apply(top_idx, top_vals, n_experts, capacity, dtype, _route(top_idx))
 
 
 def paged_attention(q, k_pool, v_pool, pages, lengths, k_scale=None, v_scale=None, *, window=None, softcap=0.0):

@@ -1,10 +1,13 @@
 """Mixture-of-Experts MLP: top-k routing with capacity-bounded einsum dispatch.
 
 The port of ``repro.models.moe``.  Tokens are processed in fixed-size
-groups; each group builds a (tokens, experts, capacity) dispatch tensor and
+groups; each group has a (tokens, experts, capacity) dispatch tensor and
 routes through two einsums, so every expert runs on its whole capacity
 buffer whatever the routing (GShard/Switch style).  The router computes in
 float32; the dispatch, the experts and the combine in the compute dtype.
+The masks of all groups come from one ``kernels.ops.moe_dispatch`` call (a
+CUDA kernel on the card); ``_top_k_dispatch`` is the reference's loop, one
+group at a time, which that op equals bit for bit.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init_
 from repro_torch.models.mlp import _act
@@ -135,9 +139,11 @@ def moe_apply(
         gates = torch.softmax(logits, dim=-1)
         if top_idx is None:
             top_idx = _top_k(gates, k)[1]
-        pairs = [_top_k_dispatch(gates[i], k, capacity, top_idx[i]) for i in range(G)]
-        dispatch = torch.stack([dc[0] for dc in pairs]).to(cdt)
-        combine = torch.stack([dc[1] for dc in pairs]).to(cdt)
+        top_idx = top_idx.contiguous()  # the kernel's layout (a top-k is a slice of the sorted experts)
+        # the chosen gates, renormalised as _top_k_dispatch does; then every group's masks in one op
+        top_vals = torch.gather(gates, 2, top_idx)
+        top_vals = top_vals / torch.clamp(top_vals.sum(-1, keepdim=True), min=1e-9)
+        dispatch, combine, routed, _ = ops.moe_dispatch(top_idx, top_vals, E, capacity, cdt)
 
     expert_in = torch.einsum("gnec,gnd->gecd", dispatch, xg.to(cdt))  # (G, E, C, d)
     # the experts as batched matmuls over E, the expert stacks read in place
@@ -157,7 +163,6 @@ def moe_apply(
     ce = top1.mean(dim=1)  # (G, E) fraction routed, the top-1 proxy
     aux_loss = E * torch.mean(torch.sum(me * ce, dim=-1))
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    routed = dispatch.sum(dim=(2, 3))  # (G, g): how many experts kept each token
     dropped = torch.mean((routed < 1).float())
     metrics = {"aux_loss": aux_loss, "z_loss": z_loss, "dropped_frac": dropped, "top_idx": top_idx, "routed": routed}
     return out.reshape(B, S, d).to(x.dtype), metrics

@@ -9,6 +9,7 @@ JAX is imported inside the ``pallas`` fixture only, so the ``gpu`` tests also
 run where JAX is not installed (``python -m pytest -m gpu`` on the card).
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -21,6 +22,12 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import weighted_accum as wa
 from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda, flash_attention_ref
+from repro_torch.kernels.moe_dispatch import (
+    moe_dispatch_cuda,
+    moe_dispatch_grad_cuda,
+    moe_dispatch_grad_ref,
+    moe_dispatch_ref,
+)
 from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_ref
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
@@ -375,7 +382,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         rwkv6_scan_cuda(r, k, v, w, torch.rand((1, 16)))
     with pytest.raises(ValueError, match="CUDA tensors"):
         weighted_accum_cuda(torch.ones(4), torch.ones(4), 1.0)
-    assert ops.launch_counts() == {"flash_attention": 0, "paged_attention": 0, "rwkv6_scan": 0, "weighted_accum": 0}
+    top_idx, slots = torch.zeros((1, 4, 2), dtype=torch.int64), torch.zeros((1, 4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        moe_dispatch_cuda(top_idx, torch.ones((1, 4, 2)), 8, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        moe_dispatch_grad_cuda(torch.ones((1, 4, 8, 4)), top_idx, slots)
+    assert ops.launch_counts() == {"flash_attention": 0, "moe_dispatch": 0, "moe_dispatch_grad": 0,
+                                   "paged_attention": 0, "rwkv6_scan": 0, "weighted_accum": 0}
 
 
 def test_weighted_accum_out_may_alias_acc_exactly_and_nothing_else():
@@ -809,3 +822,111 @@ def test_weighted_accum_cuda_tree_equals_plain(cuda, name, in_place):
     assert all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want))
     assert weighted_accum_cuda.launches - launches == sum(-(-n // wa.MAX_TENSORS) for n in groups.values())
     assert weighted_accum_cuda.tensors - tensors == sum(groups.values())
+
+
+# the MoE routing masks at the shapes the port routes: olmoe-1b-7b's training groups (the benchmark's
+# cell), phi3.5-moe prefill with capacity drops, a decode group of 8 slots (five routed alike), and a
+# held route with a repeated expert; name: (G, g, E, k, capacity factor, input)
+MOE_DISPATCH_GPU_CASES = {
+    "olmoe-1b-7b train groups": (4, 2048, 64, 8, 1.25, "router"),
+    "phi3.5-moe prefill, drops": (1, 512, 16, 2, 0.5, "router"),
+    "decode group of 8": (1, 8, 16, 2, 1.25, "idle rows"),
+    "held route, repeated expert": (2, 96, 8, 3, 1.0, "repeated"),
+}
+
+
+def _moe_dispatch_case(name, device):
+    """(gates (G, g, E) float32, top_idx (G, g, k) contiguous, capacity) made with numpy."""
+    G, g, E, k, cf, kind = MOE_DISPATCH_GPU_CASES[name]
+    rng = np.random.default_rng(g + E + k)
+    logits = 2 * rng.standard_normal((G, g, E)).astype(np.float32)
+    if kind == "idle rows":
+        logits[:, [0, 2, 4, 5, 6]] = logits[:, :1]
+    gates = torch.softmax(torch.from_numpy(logits).to(device), dim=-1)
+    if kind == "repeated":
+        idx = rng.integers(0, E, (G, g, k))
+        idx[..., 0] = 0
+        idx[:, ::3, 2] = idx[:, ::3, 1]
+        top_idx = torch.from_numpy(idx).to(device)
+    else:
+        top_idx = torch.sort(gates, dim=-1, descending=True, stable=True)[1][..., :k].contiguous()
+    return gates, top_idx, -(-max(int(k * g / E * cf), 1) // 4) * 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(MOE_DISPATCH_GPU_CASES))
+def test_moe_dispatch_cuda_equals_plain_and_the_loop(cuda, name, dt):
+    """dispatch, combine, routed, the slots and the gate's gradient bit for bit against the plain
+    version on the card, and against the loop (``_top_k_dispatch`` a group at a time), the router's
+    gradient through the renormalisation too; one launch each way."""
+    from repro_torch.models.moe import _top_k_dispatch
+
+    dtype = TORCH[dt]
+    gates, top_idx, capacity = _moe_dispatch_case(name, cuda)
+    G, g, E = gates.shape
+    k = top_idx.shape[-1]
+    leaf = gates.clone().requires_grad_(True)
+    top_vals = torch.gather(leaf, 2, top_idx)
+    top_vals = top_vals / torch.clamp(top_vals.sum(-1, keepdim=True), min=1e-9)
+    before = (moe_dispatch_cuda.launches, moe_dispatch_grad_cuda.launches)
+    got = ops.moe_dispatch(top_idx, top_vals, E, capacity, dtype)
+    torch.cuda.synchronize()
+    assert moe_dispatch_cuda.launches == before[0] + 1
+    with torch.no_grad():
+        want = moe_dispatch_ref(top_idx, top_vals, E, capacity, dtype)
+    for label, x, y in zip(("dispatch", "combine", "routed", "slots"), got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y), label
+    pairs = [_top_k_dispatch(gates[i], k, capacity, top_idx[i]) for i in range(G)]
+    loop = torch.stack([p[0] for p in pairs]).to(dtype)
+    assert torch.equal(got[0], loop) and torch.equal(got[2], loop.sum(dim=(2, 3)))
+    assert torch.equal(got[1], torch.stack([p[1] for p in pairs]).to(dtype))
+    if name != "olmoe-1b-7b train groups":
+        assert (got[3] < 0).any()  # the capacity dropped some choices
+    grad_combine = torch.randn((G, g, E, capacity), device=cuda).to(dtype)
+    grad, grad_gates = torch.autograd.grad(got[1], [top_vals, leaf], grad_combine)
+    torch.cuda.synchronize()
+    assert moe_dispatch_grad_cuda.launches == before[1] + 1
+    assert torch.equal(grad, moe_dispatch_grad_ref(grad_combine, top_idx, got[3]))
+    loop_leaf = gates.clone().requires_grad_(True)
+    loop_combine = torch.stack([_top_k_dispatch(loop_leaf[i], k, capacity, top_idx[i])[1] for i in range(G)])
+    (want_gates,) = torch.autograd.grad(loop_combine.to(dtype), loop_leaf, grad_combine)
+    assert grad_gates.abs().max() > 0 and torch.equal(grad_gates, want_gates)
+    # a transposed gradient is read through its strides
+    t = grad_combine.transpose(2, 3).contiguous().transpose(2, 3)
+    assert torch.equal(moe_dispatch_grad_cuda(t, top_idx, got[3]), grad)
+
+
+@pytest.mark.gpu
+def test_moe_dispatch_cuda_refusals(cuda):
+    top_idx = torch.zeros((1, 8, 2), dtype=torch.int64, device=cuda)
+    vals = torch.ones((1, 8, 2), device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        moe_dispatch_cuda(top_idx, vals, 8, 4, torch.float16)
+    with pytest.raises(TypeError, match="int64"):
+        moe_dispatch_cuda(top_idx.int(), vals, 8, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_dispatch_cuda(torch.zeros((1, 2, 8), dtype=torch.int64, device=cuda).transpose(1, 2), vals, 8, 4,
+                          torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        moe_dispatch_cuda(torch.zeros((1, 8, 64), dtype=torch.int64, device=cuda), torch.ones((1, 8, 64), device=cuda),
+                          1024, 4, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_moe_train_step_launches_the_masks_twice_a_layer_under_remat(cuda):
+    """olmoe's smoke config (every layer MoE, bf16 compute) under remat: one launch a layer in the
+    forward and one in its recomputation, a gradient launch a layer in the backward."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params, loss_fn
+
+    cfg = dataclasses.replace(smoke_config("olmoe-1b-7b", seq=64), remat=True, compute_dtype="bfloat16")
+    assert all(s.moe for s in cfg.layer_specs())
+    params = init_params(cfg, seed=0, device=cuda).requires_grad_(True)
+    x = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda)
+    ops.reset_launch_counts()
+    loss, _ = loss_fn(params, {"inputs": x, "targets": x}, cfg)
+    torch.autograd.grad(loss, list(params.parameters()))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["moe_dispatch"] == 2 * cfg.n_layers and counts["moe_dispatch_grad"] == cfg.n_layers

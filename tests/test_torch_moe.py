@@ -2,6 +2,12 @@
 
 * ``_top_k_dispatch`` is bit-equal to the reference's, ties included (the
   lower expert index wins, as in ``jax.lax.top_k``);
+* ``kernels.ops.moe_dispatch`` (the masks of every group at once, the op
+  ``moe_apply`` calls) equals ``_top_k_dispatch`` a group at a time bit for
+  bit, in its plain version: dispatch, combine and the kept counts in float32
+  and bfloat16, with capacity drops, a held route with a repeated expert and
+  a decode group of 8, and the router's gradient through combine; on meta
+  tensors it gives the shapes and launches nothing;
 * ``moe_apply`` gives the reference's ``out``, ``aux_loss``, ``z_loss`` and
   ``dropped_frac`` within ``TOL`` in float32: a prefill group with capacity
   drops, the decode group of 8 slots whose idle rows route too (and take
@@ -41,6 +47,7 @@ from repro.serve import WorkloadConfig as JWorkloadConfig
 from repro.serve import serve_loop as jax_serve_loop
 from repro.serve import synthesize as jax_synthesize
 from repro_torch import configs as tconfigs
+from repro_torch.kernels import ops
 from repro_torch.models import forward, loss_fn
 from repro_torch.models.convert import (
     _tree_from_named,
@@ -160,6 +167,117 @@ def test_moe_apply_routes_by_a_given_choice():
         _, mf = moe_apply(tp, x, tcfg, top_idx=forced)
     capacity = -(-max(int(2 * 32 / 8 * 1.25), 1) // 4) * 4
     assert m["top_idx"].shape == (1, 32, 2) and float(mf["dropped_frac"]) == (32 - capacity) / 32
+
+
+# ---------------------------------------------------------------------------
+# the routing masks of all groups in one op (kernels.ops.moe_dispatch)
+# ---------------------------------------------------------------------------
+
+# name: (groups G, tokens a group g, experts E, top-k, capacity factor, "repeated" (a held top_idx),
+# "idle rows" (five decode rows routed alike) or None)
+DISPATCH_CASES = {
+    "two groups": (2, 24, 8, 2, 1.25, None),
+    "phi3.5-moe capacity drops": (1, 64, 16, 2, 0.5, None),
+    "held top_idx, repeated expert": (2, 16, 8, 3, 1.0, "repeated"),
+    "decode group of 8": (1, 8, 16, 2, 1.25, "idle rows"),
+    "olmoe top-8 of 64": (2, 64, 64, 8, 1.25, None),
+}
+
+
+def _dispatch_inputs(case):
+    """(gates (G, g, E) float32, top_idx (G, g, k), capacity) of a case, made with numpy."""
+    G, g, E, k, cf, held = DISPATCH_CASES[case]
+    rng = np.random.default_rng(G * 100 + g + E + k)
+    logits = torch.from_numpy(2 * rng.standard_normal((G, g, E)).astype(np.float32))
+    if held == "idle rows":  # idle slots hold one stale token's state: more than the capacity on one expert
+        logits[:, [0, 2, 4, 5, 6]] = logits[:, :1].clone()
+    gates = torch.softmax(logits, dim=-1)
+    if held != "repeated":
+        top_idx = torch.sort(gates, dim=-1, descending=True, stable=True)[1][..., :k].contiguous()
+    else:  # every token's first choice expert 0 (drops past capacity), some tokens' expert twice
+        top_idx = torch.from_numpy(rng.integers(0, E, (G, g, k)))
+        top_idx[..., 0] = 0
+        top_idx[:, ::3, 2] = top_idx[:, ::3, 1]
+    capacity = -(-max(int(k * g / E * cf), 1) // 4) * 4
+    return gates, top_idx, capacity
+
+
+def _loop_masks(gates, top_idx, capacity, dtype):
+    """``_top_k_dispatch`` a group at a time, cast as moe_apply did: (dispatch, combine, routed)."""
+    k = top_idx.shape[-1]
+    pairs = [_top_k_dispatch(gates[i], k, capacity, top_idx[i]) for i in range(gates.shape[0])]
+    dispatch = torch.stack([dc[0] for dc in pairs]).to(dtype)
+    return dispatch, torch.stack([dc[1] for dc in pairs]).to(dtype), dispatch.sum(dim=(2, 3))
+
+
+def _op_masks(gates, top_idx, capacity, dtype):
+    top_vals = torch.gather(gates, 2, top_idx)
+    top_vals = top_vals / torch.clamp(top_vals.sum(-1, keepdim=True), min=1e-9)
+    return ops.moe_dispatch(top_idx, top_vals, gates.shape[-1], capacity, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(DISPATCH_CASES))
+def test_moe_dispatch_plain_equals_the_loop_per_group(case, dtype):
+    """dispatch, combine and routed bit for bit; a slot for each kept choice, -1 for each dropped one."""
+    gates, top_idx, capacity = _dispatch_inputs(case)
+    want = _loop_masks(gates, top_idx, capacity, dtype)
+    dispatch, combine, routed, slots = _op_masks(gates, top_idx, capacity, dtype)
+    for name, got, w in zip(("dispatch", "combine", "routed"), (dispatch, combine, routed), want):
+        assert got.dtype == dtype and got.shape == w.shape and torch.equal(got, w), name
+    assert slots.dtype == torch.int32 and slots.shape == top_idx.shape
+    assert torch.equal((slots >= 0).sum(-1).to(dtype), routed) and int(slots.max()) < capacity
+    if case in ("phi3.5-moe capacity drops", "held top_idx, repeated expert", "decode group of 8"):
+        assert (slots < 0).any()  # the capacity dropped some choices
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(DISPATCH_CASES))
+def test_moe_dispatch_gate_gradient_equals_the_loop(case, dtype):
+    """The router's gradient through combine (and the renormalisation) is the loop's, bit for bit."""
+    gates, top_idx, capacity = _dispatch_inputs(case)
+    G, g, E = gates.shape
+    w = torch.from_numpy(np.random.default_rng(5).standard_normal((G, g, E, capacity)).astype(np.float32))
+    grads = []
+    for masks in (_loop_masks, _op_masks):
+        leaf = gates.clone().requires_grad_(True)
+        combine = masks(leaf, top_idx, capacity, dtype)[1]
+        grads.append(torch.autograd.grad((combine.float() * w).sum(), leaf)[0])
+    assert grads[1].abs().max() > 0 and torch.equal(grads[1], grads[0])
+
+
+def test_moe_dispatch_on_meta_gives_the_shapes_and_launches_nothing():
+    ops.reset_launch_counts()
+    top_idx = torch.empty((3, 16, 4), dtype=torch.int64, device="meta")
+    top_vals = torch.empty((3, 16, 4), dtype=torch.float32, device="meta", requires_grad=True)
+    dispatch, combine, routed, slots = ops.moe_dispatch(top_idx, top_vals, 8, 12, torch.bfloat16)
+    assert all(t.device.type == "meta" for t in (dispatch, combine, routed, slots))
+    assert dispatch.shape == combine.shape == (3, 16, 8, 12) and dispatch.dtype == combine.dtype == torch.bfloat16
+    assert routed.shape == (3, 16) and slots.shape == (3, 16, 4) and slots.dtype == torch.int32
+    (grad,) = torch.autograd.grad(combine.float().sum(), top_vals)
+    assert grad.device.type == "meta" and grad.shape == (3, 16, 4) and grad.dtype == torch.float32
+    assert combine.requires_grad and not dispatch.requires_grad
+    assert ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0)
+
+
+def test_moe_apply_routes_every_group_through_one_dispatch_call(monkeypatch):
+    """Three groups, one op call; its routed is the loop's kept count a token."""
+    _, tcfg, _, tp = _moe_pair("phi3.5-moe-42b-a6.6b", 0.5)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal((3, 16, tcfg.d_model)).astype(np.float32))
+    calls = []
+
+    def counting(*args):
+        calls.append(args[0].shape)
+        return dispatch_op(*args)
+
+    dispatch_op = ops.moe_dispatch
+    monkeypatch.setattr(ops, "moe_dispatch", counting)
+    with torch.no_grad():
+        _, m = moe_apply(tp, x, tcfg, group_size=16)
+        gates = torch.softmax(torch.einsum("gnd,de->gne", x, tp.router), dim=-1)
+    capacity = -(-max(int(2 * 16 / 8 * 0.5), 1) // 4) * 4
+    assert calls == [(3, 16, 2)]
+    assert torch.equal(m["routed"], _loop_masks(gates, m["top_idx"], capacity, tcfg.dtype("compute"))[2])
 
 
 def test_moe_module_keeps_the_reference_layout_and_a_float32_router():

@@ -167,16 +167,17 @@ def test_a_backward_that_raises_leaves_no_range_open():
 
 
 def _dispatch_counts(monkeypatch):
-    """Record each dispatch tensor's count of kept choices as the MoE builds it."""
+    """Record each dispatch tensor's count of kept choices as the MoE builds it
+    (one ``kernels.ops.moe_dispatch`` call a layer, every group at once)."""
     counts = []
-    inner = moe_lib._top_k_dispatch
+    inner = moe_lib.ops.moe_dispatch
 
     def recording(*args, **kw):
-        dispatch, combine = inner(*args, **kw)
+        dispatch, *rest = inner(*args, **kw)
         counts.append(float(dispatch.sum()))
-        return dispatch, combine
+        return (dispatch, *rest)
 
-    monkeypatch.setattr(moe_lib, "_top_k_dispatch", recording)
+    monkeypatch.setattr(moe_lib.ops, "moe_dispatch", recording)
     return counts
 
 
